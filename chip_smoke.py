@@ -8,15 +8,26 @@ Phases, each of which raises on failure (exit code != 0):
   1. the card's name and power limit (nvidia-smi);
   2. build: compiles the contact kernel from dwbc_tpu_torch/csrc with nvcc;
   3. kernels: the CUDA contact kernel against its plain PyTorch version on
-     the card, at widowGo1's 84 spheres x 8192 envs and a ragged 8192 + 77,
-     with its time, the plain version's time and its memory bound;
+     the card (`active` exact, the forces within the parity tolerances) at
+     KERNEL_SHAPES: widowGo1's 84 spheres on 21 bodies x 8192 envs, a
+     ragged 8192 + 77, one env, the kernel's limits (128 spheres, 32
+     bodies) and a geom->body map in random order. Per shape: its device
+     time per launch (a CUDA graph of TIMED_LAUNCHES launches rotating over
+     N_SETS input sets, so that at 84 x 8192 each launch reads its inputs
+     from HBM and not from the 50 MB L2), achieved GB/s and share of the
+     bound, the plain version's time and the wrapper's host time; beside
+     them two yardsticks: the kernel on one input set (L2 warm) and one
+     device copy that moves the same bytes (`copy_`, not a port of the
+     law);
   4. step check: one widowGo1 env step on the card (the kernel) against
      the same step on the CPU (the plain law), 64 envs, same state;
   5. slice: make_env("widowGo1", 8192 envs) on the full Perlin terrain, an
      ActorCritic on the card, and two 40-step Rollout.collect calls
      (history encoder on, as training's iteration 0 runs, then off). Each
      must launch the contact kernel exactly 160 times (40 steps x 4
-     substeps) and give finite observations, rewards and state.
+     substeps) and give finite observations, rewards and state. With
+     --profile, the contact kernel's device time per launch inside the
+     env step, beside its isolated time.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Results are also written to chiprun_out/chip_smoke.json.
@@ -45,14 +56,22 @@ DECIMATION = 4
 # normal/tangent speeds and directional masses 57, warm-start split 16,
 # normal force 8, friction 19, outputs and carry 24
 LAW_FLOPS_PER_ELEM = 140
+# (ng, nb, N, geom->body map sorted); the first is the main path's shape
+KERNEL_SHAPES = ((84, 21, NUM_ENVS, True), (84, 21, NUM_ENVS + 77, True),
+                 (13, 5, 1, True), (128, 32, 33, True),
+                 (84, 21, NUM_ENVS, False))
+N_SETS = 3            # 3 x 41 MB of inputs at 84 x 8192 > the 50 MB L2
+TIMED_LAUNCHES = 60
+PLAIN_LAUNCHES = 12   # ~100 elementwise kernels each
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def random_scene(n, ng, nb, seed, device):
-    """Contact-law inputs with about half the spheres in contact."""
+def random_scene(n, ng, nb, seed, device, sorted=True):
+    """Contact-law inputs with about half the spheres in contact; the
+    geom->body map sorted by body or in random order."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     t = lambda a: torch.as_tensor(np.asarray(a, f32), device=device)
@@ -63,13 +82,14 @@ def random_scene(n, ng, nb, seed, device):
     m_solo = rng.uniform(0.3, 2.0, ng)
     W = w @ w.transpose(0, 2, 1) + np.eye(3) / m_solo[:, None, None]
     from dwbc_tpu_torch.sim.contact import ContactParams, GeomConst
+    body = rng.integers(0, nb, ng)
+    body = np.sort(body) if sorted else body
     gc = GeomConst(
         radius=t(rng.uniform(0.01, 0.05, ng)), m_solo=t(m_solo),
         m_body=t(rng.uniform(1.0, 8.0, ng)),
         w6=t([W[:, i, j] for i, j in
               ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))]),
-        geom_body=torch.as_tensor(np.sort(rng.integers(0, nb, ng)).astype(np.int32),
-                                  device=device),
+        geom_body=torch.as_tensor(body.astype(np.int32), device=device),
         nb=nb)
     cache = (t(0.1 * rng.normal(size=(ng, n))),
              t(np.stack([nx * inv, ny * inv, inv])),
@@ -79,18 +99,42 @@ def random_scene(n, ng, nb, seed, device):
             t(np.linspace(0.4, 2.5, n)), gc, ContactParams(dt=0.005), 0.005)
 
 
-def time_ms(fn, iters=50, warmup=5):
-    for _ in range(warmup):
-        fn()
+def device_ms(fn, sets, launches):
+    """Device time per call of fn(*args), `launches` calls rotating over
+    the argument tuples in `sets`, captured in one CUDA graph and replayed
+    after a warm-up replay: the calls run back to back on the card, with
+    no Python between them, timed with CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            fn(*sets[i % len(sets)])
+    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / launches
+
+
+def host_us(fn, args, calls=20):
+    """Host time of one eager call of fn(*args) (Python, checks, output
+    allocation, the launch itself), queued back to back."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def law_bytes(ng, n):
@@ -105,34 +149,55 @@ def kernel_phase(device):
     from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.sim.contact import fused_terrain_law
     rows = []
-    for n in (NUM_ENVS, NUM_ENVS + 77):
-        args = random_scene(n, 84, 21, seed=n, device=device)
-        out = contact_law(*args)
-        ref = fused_terrain_law(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(out[2], ref[2]):
-            raise AssertionError(f"N={n}: active masks differ in "
-                                 f"{int((out[2] != ref[2]).sum())} places")
+    for ng, nb, n, ordered in KERNEL_SHAPES:
+        tag = (f"ng={ng} nb={nb} N={n} "
+               f"{'sorted' if ordered else 'unsorted'} map")
+        sets = [random_scene(n, ng, nb, seed=1000 * ng + n + i,
+                             device=device, sorted=ordered)
+                for i in range(N_SETS)]
         err = 0.0
-        for name, o, r, rtol, atol in (("gF", out[0], ref[0], 1e-5, 5e-5),
-                                       ("cf_new", out[1], ref[1], 1e-5, 5e-5),
-                                       ("share_f", out[3], ref[3], 1e-6, 0.0)):
-            torch.testing.assert_close(o, r, rtol=rtol, atol=atol,
-                                       msg=lambda m: f"N={n} {name}: {m}")
-            err = max(err, float((o - r).abs().max()))
-        ms = time_ms(lambda: contact_law(*args))
-        plain_ms = time_ms(lambda: fused_terrain_law(*args), iters=20)
-        nbytes = law_bytes(84, n)
-        bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                       LAW_FLOPS_PER_ELEM * 84 * n / FP32_FLOPS) * 1e3
-        log(f"kernel contact_law N={n}: max_abs_err={err:.3g} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-            f"({nbytes / 1e6:.2f} MB)")
-        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
-                    >= LAW_FLOPS_PER_ELEM * 84 * n / FP32_FLOPS
-                    else "operations")
-        rows.append(dict(n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes))
+        for args in sets:
+            out = contact_law(*args)
+            ref = fused_terrain_law(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(out[2], ref[2]):
+                raise AssertionError(f"{tag}: active masks differ in "
+                                     f"{int((out[2] != ref[2]).sum())} places")
+            for name, o, r, rtol, atol in (
+                    ("gF", out[0], ref[0], 1e-5, 5e-5),
+                    ("cf_new", out[1], ref[1], 1e-5, 5e-5),
+                    ("share_f", out[3], ref[3], 1e-6, 0.0)):
+                torch.testing.assert_close(
+                    o, r, rtol=rtol, atol=atol,
+                    msg=lambda m: f"{tag} {name}: {m}")
+                err = max(err, float((o - r).abs().max()))
+        ms = device_ms(contact_law, sets, TIMED_LAUNCHES)
+        warm_ms = device_ms(contact_law, sets[:1], TIMED_LAUNCHES)
+        plain_ms = device_ms(fused_terrain_law, sets, PLAIN_LAUNCHES)
+        wrapper_us = host_us(contact_law, sets[0])
+        nbytes = law_bytes(ng, n)
+        copies = [(torch.empty(nbytes // 8, device=device),
+                   torch.empty(nbytes // 8, device=device))
+                  for _ in range(N_SETS)]
+        copy_ms = device_ms(lambda dst, src: dst.copy_(src), copies,
+                            TIMED_LAUNCHES)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flop_ms = LAW_FLOPS_PER_ELEM * ng * n / FP32_FLOPS * 1e3
+        bound_ms = max(byte_ms, flop_ms)
+        row = dict(ng=ng, nb=nb, n=n, sorted=ordered, max_abs_err=err,
+                   ms=ms, warm_ms=warm_ms, copy_ms=copy_ms,
+                   plain_ms=plain_ms, host_us=wrapper_us,
+                   bound_ms=bound_ms,
+                   bound_by="bytes" if byte_ms >= flop_ms else "operations",
+                   bytes=nbytes, gbps=nbytes / ms / 1e6,
+                   share_of_bound=bound_ms / ms)
+        log(f"kernel contact_law {tag}: max_abs_err={err:.3g} ms={ms:.5f} "
+            f"({row['gbps']:.1f} GB/s, {row['share_of_bound']:.1%} of the "
+            f"bound) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
+            f"({nbytes / 1e6:.2f} MB, {row['bound_by']}); L2-warm "
+            f"{warm_ms:.5f} ms, copy of the same bytes {copy_ms:.5f} ms; "
+            f"wrapper host {wrapper_us:.1f} us/call")
+        rows.append(row)
     return rows
 
 
@@ -243,17 +308,26 @@ def slice_phase(device, profile):
             env.step(state, actions, 3.0)
             torch.cuda.synchronize()
             step_s = time.time() - t0
-        table = p.key_averages().table(sort_by="self_device_time_total",
-                                       row_limit=40)
+        events = p.key_averages()
+        table = events.table(sort_by="self_device_time_total", row_limit=40)
         # device kernels only: the aten:: rows repeat their kernels' time
-        dev_us = sum(e.self_device_time_total for e in p.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        cuda_rows = [e for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in cuda_rows)
+        law = [e for e in cuda_rows if "contact_law" in e.key]
+        law_n = sum(e.count for e in law)
+        law_ms = (sum(e.self_device_time_total for e in law) / law_n / 1e3
+                  if law_n else float("nan"))
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, "profile_env_step.txt"), "w") as f:
             f.write(f"one env.step, {NUM_ENVS} envs: wall {step_s:.4f} s, "
                     f"device busy {dev_us / 1e6:.4f} s\n{table}\n")
         log(f"profile: one env.step wall {step_s:.4f} s, device busy "
-            f"{dev_us / 1e6:.4f} s (chiprun_out/profile_env_step.txt)")
+            f"{dev_us / 1e6:.4f} s (chiprun_out/profile_env_step.txt); "
+            f"contact kernel in the step {law_ms:.5f} ms per launch over "
+            f"{law_n} launches")
+        results.append(dict(profile_step_s=step_s, device_busy_s=dev_us / 1e6,
+                            contact_law_in_step_ms=law_ms))
     return results, total_launches
 
 
@@ -281,7 +355,7 @@ def main():
         f"{os.path.relpath(contact_kernel.LIBRARY, ROOT)} in "
         f"{time.time() - t0:.2f} s")
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("properties", "registers", "spill")):
             log(f"  ptxas: {line.strip()}")
 
     rows = kernel_phase(device)
@@ -296,15 +370,16 @@ def main():
         launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=None)]
+        library_ms=None, share_of_bound=main_row["share_of_bound"])]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, kernel_rows=rows,
                        collects=collects), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
+    # the run uses one card, whatever else the host holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
 
 
 if __name__ == "__main__":

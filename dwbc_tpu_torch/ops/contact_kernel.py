@@ -7,7 +7,9 @@ for `sim.contact.fused_terrain_law` (same signature, same returns):
   * on CUDA tensors it launches csrc/contact_law.cu, built at first use
     with nvcc into dwbc_tpu_torch/build/ (rebuilt when the source is newer
     than the library) and bound with ctypes. A failed build or launch
-    raises; nothing falls back to the plain version.
+    raises; nothing falls back to the plain version. The kernel takes at
+    most NG_MAX spheres and NB_MAX bodies, and indexes its planes with
+    32-bit offsets (`check_limits`, before the launch).
 
 `contact_law.launches` counts kernel launches (plain-version calls do not
 count), so a run can show that its main path went through the kernel.
@@ -32,6 +34,9 @@ LIBRARY = os.path.join(_PKG, "build", "libcontact_law.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
+# the kernel's limits (NG_MAX, NB_MAX in csrc/contact_law.cu)
+NG_MAX = 128
+NB_MAX = 32
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -82,6 +87,18 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
+def check_limits(ng: int, nb: int, n: int) -> None:
+    """Raise ValueError unless 1 <= ng <= NG_MAX, 1 <= nb <= NB_MAX and
+    the (3, ng, n) planes fit 32-bit offsets."""
+    if not 1 <= ng <= NG_MAX:
+        raise ValueError(f"contact kernel: {ng} spheres, supports 1..{NG_MAX}")
+    if not 1 <= nb <= NB_MAX:
+        raise ValueError(f"contact kernel: {nb} bodies, supports 1..{NB_MAX}")
+    if not 1 <= n or 3 * ng * n >= 2 ** 32:
+        raise ValueError(f"contact kernel: {n} envs x {ng} spheres, needs "
+                         f"1 <= envs and 3 x spheres x envs < 2^32")
+
+
 def _check(name, t, shape, dtype, device):
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
@@ -97,6 +114,7 @@ def _launch(gp, gv, terrain_cache, fprev, friction, gc: GeomConst,
             cp: ContactParams, dt: float):
     h_a, nrm, ax, ay = terrain_cache
     ng, n = h_a.shape[-2], gp.shape[-1]
+    check_limits(ng, gc.nb, n)
     dev = gp.device
     f32 = torch.float32
     for name, t in (("gp", gp), ("gv", gv), ("fprev", fprev), ("nrm", nrm)):

@@ -17,6 +17,7 @@ import torch
 
 from ..core import maths, spatial
 from ..core.model import RobotModel
+from ..utils.device import resolve_device
 
 
 def _f32(a, device="cpu") -> torch.Tensor:
@@ -31,9 +32,10 @@ class Inertial(NamedTuple):
     inertia: torch.Tensor  # (..., nb, 3, 3) about com
 
 
-def default_inertial(model: RobotModel, device="cpu") -> Inertial:
-    return Inertial(mass=_f32(model.mass, device), com=_f32(model.com, device),
-                    inertia=_f32(model.inertia, device))
+def default_inertial(model: RobotModel, device="cuda") -> Inertial:
+    dev = resolve_device(device)
+    return Inertial(mass=_f32(model.mass, dev), com=_f32(model.com, dev),
+                    inertia=_f32(model.inertia, dev))
 
 
 class Kin(NamedTuple):

@@ -54,7 +54,8 @@ def geom_effective_masses(model: RobotModel, q_ref: torch.Tensor):
     m_body, w_geom). m_solo = 1/(n^T J M^-1 J^T n) along the vertical at
     the sphere centre; m_body the same at the body origin; w_geom the full
     3x3 translational Delassus matrix J M^-1 J^T at the sphere centre."""
-    M = dynamics.crba(model, dynamics.default_inertial(model), q_ref)
+    # build-time work on the CPU by design (module docstring)
+    M = dynamics.crba(model, dynamics.default_inertial(model, "cpu"), q_ref)
     Minv = torch.linalg.inv(M + 1e-9 * torch.eye(model.nv))
     kin = dynamics.fk(model, q_ref, torch.zeros(model.nv))
     n = torch.tensor([0.0, 0.0, 1.0])
@@ -87,7 +88,7 @@ class PhysCtx(NamedTuple):
 
 def build_ctx(model: RobotModel, q_ref: torch.Tensor) -> PhysCtx:
     q_ref = torch.as_tensor(q_ref, dtype=torch.float32, device="cpu")
-    M = dynamics.crba(model, dynamics.default_inertial(model), q_ref)
+    M = dynamics.crba(model, dynamics.default_inertial(model, "cpu"), q_ref)
     m_solo, m_body, w_geom = geom_effective_masses(model, q_ref)
     return PhysCtx(m_solo=m_solo, m_body=m_body,
                    dof_i_eff=torch.diagonal(M)[6:], w_geom=w_geom)

@@ -24,6 +24,7 @@ from ..core import maths, spatial
 from ..core.model import RobotModel
 from ..ops.contact_kernel import contact_law
 from ..terrain.terrain import Heightfield
+from ..utils.device import resolve_device
 from .contact import GeomConst, m_dir
 from .engine import PhysCtx, SimParams
 
@@ -40,13 +41,14 @@ class FusedOut(NamedTuple):
 
 
 def init_contact_carry(model: RobotModel, num_envs: int, with_box: bool = False,
-                       device="cpu") -> dict:
+                       device="cuda") -> dict:
     """Zero warm-start contact state (see make_fused_substep)."""
+    dev = resolve_device(device)
     ng = len(model.geom_body)
-    d = {"terr": torch.zeros((num_envs, ng, 3), device=device)}
+    d = {"terr": torch.zeros((num_envs, ng, 3), device=dev)}
     if with_box:
-        d["boxg"] = torch.zeros((num_envs, ng, 3), device=device)
-        d["corner"] = torch.zeros((num_envs, 8, 3), device=device)
+        d["boxg"] = torch.zeros((num_envs, ng, 3), device=dev)
+        d["corner"] = torch.zeros((num_envs, 8, 3), device=dev)
     return d
 
 
@@ -143,7 +145,7 @@ def _solve3(M, b):
 
 
 def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
-                       ctx: PhysCtx, foot_geoms, device="cpu",
+                       ctx: PhysCtx, foot_geoms, device="cuda",
                        box_half_extents: Optional[Tuple[float, ...]] = None):
     """Build step(q, qd, tau_fn, mass, com, inertia, friction, n_steps, ...)
     running `n_steps` physics substeps on `device`. tau_fn(q, qd) -> (N, nj)
@@ -155,7 +157,7 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
     rounded corners contact the terrain, and the box integrates as one
     Newton-Euler rigid body. step() then takes box_q (N, 7), box_qd (N, 6),
     box_mass (N,), box_i_diag (N, 3) and returns (out, box_q, box_qd)."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils.device import resolve_device
 
 
 class Heightfield(NamedTuple):
@@ -63,17 +64,19 @@ class Heightfield(NamedTuple):
 
 
 def heightfield_from_numpy(height: np.ndarray, cell: float, origin,
-                           device) -> Heightfield:
+                           device="cuda") -> Heightfield:
     """Heightfield on `device` from a numpy height array (cast to f32)."""
+    dev = resolve_device(device)
     return Heightfield(
-        height=torch.as_tensor(np.asarray(height, np.float32), device=device),
+        height=torch.as_tensor(np.asarray(height, np.float32), device=dev),
         cell=float(cell), origin=(float(origin[0]), float(origin[1])))
 
 
 def flat_plane(size: float = 100.0, cell: float = 1.0,
-               device="cpu") -> Heightfield:
+               device="cuda") -> Heightfield:
+    dev = resolve_device(device)
     n = int(2 * size / cell) + 1
-    return Heightfield(height=torch.zeros((n, n), device=device), cell=cell,
+    return Heightfield(height=torch.zeros((n, n), device=dev), cell=cell,
                        origin=(-size, -size))
 
 
@@ -159,10 +162,11 @@ def perlin_heights(cfg: PerlinTerrainCfg) -> np.ndarray:
     return h.astype(np.float32)
 
 
-def perlin_terrain(cfg: PerlinTerrainCfg, device="cpu") -> Heightfield:
+def perlin_terrain(cfg: PerlinTerrainCfg, device="cuda") -> Heightfield:
+    dev = resolve_device(device)
     # centre the mesh like the reference trimesh transform
     # (widowGo1_config.py:299-301)
     origin = (-cfg.tot_cols * cfg.horizontal_scale / 2,
               -cfg.tot_rows * cfg.horizontal_scale / 2)
     return heightfield_from_numpy(perlin_heights(cfg), cfg.horizontal_scale,
-                                  origin, device)
+                                  origin, dev)

@@ -15,16 +15,16 @@ import pytest
 import torch
 
 from dwbc_tpu.sim import contact as jcontact
-from dwbc_tpu_torch.ops.contact_kernel import contact_law
+from dwbc_tpu_torch.ops.contact_kernel import check_limits, contact_law
 from dwbc_tpu_torch.sim.contact import ContactParams, GeomConst, fused_terrain_law
 
 DT = 0.005
 
 
-def random_scene(n, ng=13, nb=5, seed=0):
+def random_scene(n, ng=13, nb=5, seed=0, sorted=True):
     """numpy arrays: gp, gv, fprev, nrm (3, ng, n); h, ax, ay (ng, n);
     friction (n,); per-geom radius, m_solo, m_body (ng,), w6 (6, ng),
-    geom_body (ng,) int32."""
+    geom_body (ng,) int32, sorted by body or in random order."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     gp = (rng.normal(size=(3, ng, n)) * 0.3).astype(f32)
@@ -38,7 +38,9 @@ def random_scene(n, ng=13, nb=5, seed=0):
     ax = (gp[0] - 0.01).astype(f32)
     ay = (gp[1] + 0.02).astype(f32)
     friction = np.linspace(0.4, 2.5, n).astype(f32)
-    body = np.sort(rng.integers(0, nb, ng)).astype(np.int32)
+    body = rng.integers(0, nb, ng).astype(np.int32)
+    if sorted:
+        body = np.sort(body)
     m_solo = rng.uniform(0.3, 2.0, ng).astype(f32)
     w = np.zeros((ng, 3, 3), f32)
     for g in range(ng):
@@ -91,9 +93,17 @@ def assert_law_close(out, ref):
     np.testing.assert_allclose(share_f, ref[3], rtol=1e-6)
 
 
-@pytest.mark.parametrize("n", [256, 2048 + 256])
-def test_plain_law_matches_jax_law(n):
-    s = random_scene(n)
+@pytest.mark.parametrize("n, ng, nb, sorted", [
+    pytest.param(256, 13, 5, True, id="256"),
+    pytest.param(2048 + 256, 13, 5, True, id="2304"),
+    # the kernel's limits, and one env; geom->body maps in random order
+    pytest.param(97, 128, 32, False, id="128x32x97-unsorted"),
+    pytest.param(1, 84, 21, False, id="84x21x1-unsorted"),
+])
+def test_plain_law_matches_jax_law(n, ng, nb, sorted):
+    s = random_scene(n, ng, nb, sorted=sorted)
+    if not sorted:
+        assert np.any(np.diff(s["geom_body"]) < 0)
     ref = jax_law(s)
     assert 0.05 < ref[2].mean() < 0.95  # both branches exercised
     launches = contact_law.launches
@@ -104,11 +114,17 @@ def test_plain_law_matches_jax_law(n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [8192, 8192 + 77])
-def test_cuda_kernel_matches_plain_law(n):
+@pytest.mark.parametrize("n, ng, nb, sorted", [
+    pytest.param(8192, 84, 21, True, id="8192"),
+    pytest.param(8192 + 77, 84, 21, True, id="8269"),
+    pytest.param(1, 13, 5, True, id="13x5x1"),
+    pytest.param(33, 128, 32, True, id="128x32x33"),
+    pytest.param(8192, 84, 21, False, id="8192-unsorted"),
+])
+def test_cuda_kernel_matches_plain_law(n, ng, nb, sorted):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    s = random_scene(n, ng=84, nb=21)
+    s = random_scene(n, ng, nb, sorted=sorted)
     args = torch_args(s, "cuda")
     plain = [x.cpu().numpy() for x in fused_terrain_law(*args)]
     launches = contact_law.launches
@@ -124,3 +140,11 @@ def test_kernel_wrapper_rejects_unsupported_device():
     args[0] = args[0].to("meta")
     with pytest.raises(ValueError):
         contact_law(*args)
+
+
+@pytest.mark.parametrize("ng, nb, n", [(129, 21, 8192), (84, 33, 8192),
+                                      (128, 32, 2 ** 32 // 384 + 1)])
+def test_kernel_limits_raise_before_launch(ng, nb, n):
+    check_limits(128, 32, 2 ** 32 // 384)
+    with pytest.raises(ValueError):
+        check_limits(ng, nb, n)

@@ -24,7 +24,8 @@ def test_perlin_heights_bit_equal(seed, monkeypatch):
         # the JAX package fell back to its numpy generator (its native
         # library failed to build or load): compare like with like
         monkeypatch.setattr(native, "fractal_noise", lambda *a, **k: None)
-    hf = terr.perlin_terrain(terr.PerlinTerrainCfg(seed=seed, **SMALL))
+    hf = terr.perlin_terrain(terr.PerlinTerrainCfg(seed=seed, **SMALL),
+                             device="cpu")
     np.testing.assert_array_equal(hf.height.numpy(), np.asarray(ref.height))
     assert hf.cell == ref.cell
     np.testing.assert_allclose(hf.origin, ref.origin, rtol=0, atol=0)
