@@ -1,15 +1,17 @@
 """Smoke run of the PyTorch/CUDA port (dwbc_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --profile  # also writes a per-kernel profile of
-                                     # one env step to chiprun_out/
+    python3 chip_smoke.py --profile  # also writes per-kernel profiles of
+                                     # one env step and of the learn steps
+                                     # to chiprun_out/
 
 Phases, each of which raises on failure (exit code != 0):
   1. the card's name and power limit (nvidia-smi);
   2. build: compiles the contact kernel from dwbc_tpu_torch/csrc with nvcc;
   3. kernels: the CUDA contact kernel against its plain PyTorch version on
      the card (`active` exact, the forces within the parity tolerances) at
-     KERNEL_SHAPES: widowGo1's 84 spheres on 21 bodies x 8192 envs, a
+     KERNEL_SHAPES: widowGo1's 84 spheres on 21 bodies x 8192 envs (the
+     slice and train phases' shape), x 1024 envs (the variant phase's), a
      ragged 8192 + 77, one env, the kernel's limits (128 spheres, 32
      bodies) and a geom->body map in random order. Per shape: its device
      time per launch (a CUDA graph of TIMED_LAUNCHES launches rotating over
@@ -27,7 +29,28 @@ Phases, each of which raises on failure (exit code != 0):
      must launch the contact kernel exactly 160 times (40 steps x 4
      substeps) and give finite observations, rewards and state. With
      --profile, the contact kernel's device time per launch inside the
-     env step, beside its isolated time.
+     env step, beside its isolated time;
+  6. train: make_runner("widowGo1", 8192 envs) and three training
+     iterations through OnPolicyRunner.learn (iteration 0 is the DAgger
+     phase, 1 and 2 the PPO update). Checks: 480 contact-kernel launches;
+     every parameter and every logged value finite; iteration 0 moved
+     nothing outside the history encoder; std at or above min_policy_std
+     after iteration 1; counter == 3; metrics.jsonl has 3 lines with
+     Perf/total_fps. Prints collect seconds, learn seconds and
+     Perf/total_fps per iteration. Then save, a second runner, load, equal
+     parameters and counter. With --profile, a torch.profiler table of
+     one DAgger and one PPO learn step;
+  7. update check: one `update` and one `update_dagger` on the card
+     against the same calls on the CPU from the same state, trajectory
+     (T = 8, N = 64) and permutation; parameters within rtol 1e-4 /
+     atol 1e-5;
+  8. variant: make_runner("widowGo1_adaptive", 1024 envs), two
+     iterations: OSC targets finite and not all zero in the trajectory,
+     Loss/arm_torques_loss finite and positive, 320 launches; and one
+     `_osc_target` on the card against the CPU at 64 envs, rtol 1e-3 /
+     atol 1e-3. With --profile, the same two iterations once more at
+     8192 envs with the peak device memory, and the wall time of one
+     `_osc_target` call at both widths.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Results are also written to chiprun_out/chip_smoke.json.
@@ -35,8 +58,12 @@ no result. Results are also written to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import copy
+import gc
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -49,6 +76,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 NUM_ENVS = 8192
+VARIANT_ENVS = 1024
 NUM_STEPS = 40
 DECIMATION = 4
 # float operations of the contact law per (sphere, env), counted from
@@ -56,8 +84,10 @@ DECIMATION = 4
 # normal/tangent speeds and directional masses 57, warm-start split 16,
 # normal force 8, friction 19, outputs and carry 24
 LAW_FLOPS_PER_ELEM = 140
-# (ng, nb, N, geom->body map sorted); the first is the main path's shape
-KERNEL_SHAPES = ((84, 21, NUM_ENVS, True), (84, 21, NUM_ENVS + 77, True),
+# (ng, nb, N, geom->body map sorted); the first two are the shapes the
+# driven paths give the kernel
+KERNEL_SHAPES = ((84, 21, NUM_ENVS, True), (84, 21, VARIANT_ENVS, True),
+                 (84, 21, NUM_ENVS + 77, True),
                  (13, 5, 1, True), (128, 32, 33, True),
                  (84, 21, NUM_ENVS, False))
 N_SETS = 3            # 3 x 41 MB of inputs at 84 x 8192 > the 50 MB L2
@@ -201,15 +231,10 @@ def kernel_phase(device):
     return rows
 
 
-def step_check(device):
-    """One env step on the card against the same step on the CPU."""
+def state_to_card(state, device):
+    """A CPU EnvState copied to the card (through interop's numpy tree)."""
     import dataclasses as dc
-    from dwbc_tpu_torch.envs.widowgo1 import WidowGo1Env
     from dwbc_tpu_torch.interop import env_state_from_numpy
-    n = 64
-    cpu = WidowGo1Env(num_envs=n, seed=1, device="cpu")
-    gpu = WidowGo1Env(num_envs=n, seed=1, device=device)
-    state, _ = cpu.reset(torch.Generator().manual_seed(0))
 
     def tree(x):
         if isinstance(x, dict):
@@ -221,7 +246,17 @@ def step_check(device):
                     if f.name != "generator"}
         return x.numpy() if torch.is_tensor(x) else np.asarray(x)
 
-    gstate = env_state_from_numpy(tree(state), device=device)
+    return env_state_from_numpy(tree(state), device=device)
+
+
+def step_check(device):
+    """One env step on the card against the same step on the CPU."""
+    from dwbc_tpu_torch.envs.widowgo1 import WidowGo1Env
+    n = 64
+    cpu = WidowGo1Env(num_envs=n, seed=1, device="cpu")
+    gpu = WidowGo1Env(num_envs=n, seed=1, device=device)
+    state, _ = cpu.reset(torch.Generator().manual_seed(0))
+    gstate = state_to_card(state, device)
     actions = torch.as_tensor(
         0.3 * np.random.default_rng(0).normal(size=(n, 18)), dtype=torch.float32)
     s_c, o_c = cpu.step(state, actions, 3.0)
@@ -310,9 +345,7 @@ def slice_phase(device, profile):
             step_s = time.time() - t0
         events = p.key_averages()
         table = events.table(sort_by="self_device_time_total", row_limit=40)
-        # device kernels only: the aten:: rows repeat their kernels' time
-        cuda_rows = [e for e in events
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        cuda_rows = device_kernel_rows(events)
         dev_us = sum(e.self_device_time_total for e in cuda_rows)
         law = [e for e in cuda_rows if "contact_law" in e.key]
         law_n = sum(e.count for e in law)
@@ -329,6 +362,294 @@ def slice_phase(device, profile):
         results.append(dict(profile_step_s=step_s, device_busy_s=dev_us / 1e6,
                             contact_law_in_step_ms=law_ms))
     return results, total_launches
+
+
+def device_kernel_rows(events):
+    """The device kernels of a profile's key_averages(), longest first: the
+    aten:: rows repeat their kernels' time, and so do the annotation
+    ranges that the optimizer puts on the device timeline."""
+    rows = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+    return sorted(rows, key=lambda e: -e.self_device_time_total)
+
+
+def model_snapshot(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def fresh_dir(name):
+    path = os.path.join(OUT_DIR, name)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def read_metrics(log_dir, lines):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != lines or any("Perf/total_fps" not in r for r in rows):
+        raise AssertionError(f"{log_dir}/metrics.jsonl: {len(rows)} lines, "
+                             f"expected {lines} with Perf/total_fps")
+    for r in rows:
+        bad = [k for k, v in r.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite logged values: {bad}")
+    return rows
+
+
+def profile_learn_step(runner, dagger, device):
+    """torch.profiler over one learn step on the runner's newest
+    trajectory: (wall seconds, device-busy seconds, table, top rows)."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    args = (runner.ppo_state, runner.last_traj, runner.obs, runner.perm_gen,
+            dagger)
+    runner.rollout.learn_step(*args)          # warm
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.time()
+        runner.rollout.learn_step(*args)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    events = p.key_averages()
+    cuda_rows = device_kernel_rows(events)
+    busy = sum(e.self_device_time_total for e in cuda_rows) / 1e6
+    top = [(e.key[:70], e.count, e.self_device_time_total / 1e3)
+           for e in cuda_rows[:6]]
+    table = events.table(sort_by="self_device_time_total", row_limit=40)
+    return wall, busy, table, top
+
+
+def train_phase(device, profile):
+    """Three training iterations of widowGo1 at 8192 envs through
+    OnPolicyRunner, then a checkpoint round trip."""
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    from dwbc_tpu_torch.utils import task_registry
+
+    log_dir = fresh_dir("train_smoke")
+    contact_law.launches = 0
+    t0 = time.time()
+    env, runner, spec = task_registry.make_runner(
+        "widowGo1", num_envs=NUM_ENVS, seed=1, log_dir=log_dir, device=device)
+    torch.cuda.synchronize()
+    log(f"train build: make_runner widowGo1 x {NUM_ENVS} envs, "
+        f"{time.time() - t0:.2f} s")
+    floor = torch.tensor(spec.ppo_cfg.min_policy_std, device=device)
+    iters = []
+    for it in range(3):
+        before = model_snapshot(runner.model)
+        runner.learn(1, log_every=1)
+        after = model_snapshot(runner.model)
+        moved = [k for k in before if not torch.equal(before[k], after[k])]
+        for k, v in after.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"iteration {it}: non-finite {k}")
+        if it == 0:
+            outside = [k for k in moved if "history_encoder" not in k]
+            if outside or not moved:
+                raise AssertionError(
+                    f"the DAgger iteration moved {outside or 'nothing'}")
+        else:
+            if any("history_encoder" in k for k in moved) or len(moved) < 30:
+                raise AssertionError(f"the PPO iteration moved {moved}")
+            if not bool((runner.model.std >= floor).all()):
+                raise AssertionError("std below min_policy_std")
+        iters.append(dict(
+            it=it, dagger=it == 0, collect_s=runner.last_collection_time,
+            learn_s=runner.last_learn_time,
+            fps=NUM_STEPS * NUM_ENVS / (runner.last_collection_time
+                                        + runner.last_learn_time)))
+    launches = contact_law.launches
+    expect = 3 * NUM_STEPS * DECIMATION
+    if launches != expect:
+        raise AssertionError(f"training launched the contact kernel "
+                             f"{launches} times, expected {expect}")
+    if runner.ppo_state.counter != 3 or runner.it != 3:
+        raise AssertionError(f"counter {runner.ppo_state.counter}, "
+                             f"it {runner.it}")
+    rows = read_metrics(log_dir, 3)
+    for i, r in zip(iters, rows):
+        i["logged_fps"] = r["Perf/total_fps"]
+        log(f"train it {i['it']} ({'DAgger' if i['dagger'] else 'PPO'}): "
+            f"collect {i['collect_s']:.3f} s, learn {i['learn_s']:.4f} s, "
+            f"Perf/total_fps {r['Perf/total_fps']}")
+
+    path = os.path.join(log_dir, "model_roundtrip")
+    runner.save(path)
+    _, other, _ = task_registry.make_runner("widowGo1", num_envs=64, seed=2,
+                                            device=device)
+    other.load(path)
+    for (k, a), b in zip(runner.model.state_dict().items(),
+                         other.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"checkpoint round trip changed {k}")
+    if (other.ppo_state.counter, other.it) != (3, 3):
+        raise AssertionError("checkpoint round trip lost the counters")
+    log(f"checkpoint: saved, loaded into a second runner, parameters and "
+        f"counter equal ({os.path.getsize(path) / 1e6:.2f} MB)")
+
+    profiles = []
+    if profile:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "profile_learn_step.txt"), "w") as f:
+            for dagger in (True, False):
+                name = "DAgger" if dagger else "PPO"
+                wall, busy, table, top = profile_learn_step(runner, dagger,
+                                                            device)
+                f.write(f"one {name} learn step, {NUM_ENVS} envs x "
+                        f"{NUM_STEPS} steps: wall {wall:.4f} s, device busy "
+                        f"{busy:.4f} s\n{table}\n\n")
+                log(f"profile: {name} learn step wall {wall:.4f} s, device "
+                    f"busy {busy:.4f} s ({busy / wall:.1%}); top device "
+                    f"operations (name, calls, ms): {top}")
+                profiles.append(dict(step=name, wall_s=wall,
+                                     device_busy_s=busy, top=top))
+    return dict(iterations=iters, profiles=profiles), launches
+
+
+def update_check(device):
+    """One update and one update_dagger on the card against the CPU from
+    the same state, trajectory (T = 8, N = 64) and permutation."""
+    from dwbc_tpu_torch.models.actor_critic import ActorCritic
+    from dwbc_tpu_torch.rl import ppo
+
+    T, N = 8, 64
+    cfg = ppo.PPOConfig()
+    torch.manual_seed(3)
+    cpu_model = ActorCritic()
+    rng = np.random.default_rng(3)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    obs = f32(rng.normal(size=(T, N, 860)))
+    with torch.no_grad():
+        mean = cpu_model.act_mean(obs.reshape(T * N, -1), False).reshape(
+            T, N, 18)
+        std = cpu_model.std.detach()
+        actions = mean + 0.3 * std * f32(rng.normal(size=(T, N, 18)))
+        logp = ppo.logp_heads(cfg, actions, mean, std)
+    dones = torch.as_tensor(rng.random((T, N)) < 0.1)
+    zeros6 = torch.zeros((T, N, 6))
+    traj = ppo.Transition(
+        obs=obs, actions=actions, rewards=f32(rng.normal(size=(T, N, 2))),
+        dones=dones, time_outs=dones & torch.as_tensor(rng.random((T, N)) < 0.5),
+        values=f32(rng.normal(size=(T, N, 2))), log_probs=logp,
+        mu=mean + 0.1 * f32(rng.normal(size=(T, N, 18))),
+        sigma=std.expand(T, N, 18).clone(), target_arm_torques=zeros6,
+        current_arm_dof_pos=zeros6, current_arm_dof_vel=zeros6)
+    last = f32(rng.normal(size=(N, 2)))
+    perms = [torch.as_tensor(rng.permutation(T * N)) for _ in range(2)]
+
+    results = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", device)):
+        model = copy.deepcopy(cpu_model).to(dev)
+        state = ppo.PPOState(cfg, model)
+        tr = ppo.Transition(*(x.to(dev) for x in traj))
+        ret, adv = ppo.compute_gae(cfg, tr, last.to(dev))
+        ppo.update(cfg, state, tr, ret, adv, perm=perms[0].to(dev))
+        ppo.update_dagger(cfg, state, tr, perm=perms[1].to(dev))
+        results[name] = {k: v.cpu() for k, v in model.state_dict().items()}
+    start = cpu_model.state_dict()
+    err = 0.0
+    for k, want in results["cpu"].items():
+        if torch.equal(want, start[k]):
+            raise AssertionError(f"update check: {k} did not move")
+        torch.testing.assert_close(results["card"][k], want, rtol=1e-4,
+                                   atol=1e-5, msg=lambda m: f"{k}: {m}")
+        err = max(err, float((results["card"][k] - want).abs().max()))
+    log(f"update check: update + update_dagger, card vs CPU, T={T} N={N}, "
+        f"parameters max_abs_err={err:.3g}")
+    return err
+
+
+def variant_train(device, n):
+    """Two training iterations of widowGo1_adaptive (adaptive arm gains +
+    OSC torque supervision) at n envs: (results, kernel launches)."""
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    from dwbc_tpu_torch.utils import task_registry
+
+    log_dir = fresh_dir(f"variant_smoke_{n}")
+    contact_law.launches = 0
+    gc.collect()    # the earlier phases' runners, before the peak is read
+    torch.cuda.reset_peak_memory_stats()
+    env, runner, spec = task_registry.make_runner(
+        "widowGo1_adaptive", num_envs=n, seed=1, log_dir=log_dir,
+        device=device)
+    runner.learn(2, log_every=1)
+    launches = contact_law.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect = 2 * NUM_STEPS * DECIMATION
+    if launches != expect:
+        raise AssertionError(f"the variant launched the contact kernel "
+                             f"{launches} times, expected {expect}")
+    tgt = runner.last_traj.target_arm_torques
+    if tuple(tgt.shape) != (NUM_STEPS, n, 6):
+        raise AssertionError(f"target_arm_torques shape {tuple(tgt.shape)}")
+    if not bool(torch.isfinite(tgt).all()) or not bool(tgt.any()):
+        raise AssertionError("OSC targets non-finite or all zero")
+    rows = read_metrics(log_dir, 2)
+    ts_loss = rows[1]["Loss/arm_torques_loss"]
+    if not ts_loss > 0:
+        raise AssertionError(f"Loss/arm_torques_loss = {ts_loss}")
+    for p in runner.model.parameters():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError("non-finite parameter in the variant")
+    for it, r in enumerate(rows):
+        log(f"variant widowGo1_adaptive x {n} envs, it {it} "
+            f"({'DAgger' if it == 0 else 'PPO'}): collect "
+            f"{r['Perf/collection time']:.3f} s, learn "
+            f"{r['Perf/learning_time']:.4f} s, Perf/total_fps "
+            f"{r['Perf/total_fps']}")
+    log(f"variant widowGo1_adaptive x {n} envs: Loss/arm_torques_loss "
+        f"{ts_loss:.4g}, |target| max {float(tgt.abs().max()):.3g}, "
+        f"launches {launches}, peak device memory {peak_gb:.2f} GB")
+    return dict(num_envs=n, collect_s=[r["Perf/collection time"] for r in rows],
+                learn_s=[r["Perf/learning_time"] for r in rows],
+                fps=[r["Perf/total_fps"] for r in rows],
+                arm_torques_loss=ts_loss, peak_device_gb=peak_gb), launches
+
+
+def osc_check(device, profile):
+    """The OSC expert on the card against the CPU, 64 envs, one state.
+    With `profile`, also its wall time per call on the card at the
+    variant's widths: (max abs error, {envs: ms per call})."""
+    from dwbc_tpu_torch.utils import task_registry
+
+    # The arm is bent away from its straight default pose: there the
+    # task-space matrix is near singular and two float32 solves agree to
+    # 1e-3 at best.
+    m = 64
+    cpu_env, _ = task_registry.make_env("widowGo1_adaptive", m, device="cpu")
+    gpu_env, _ = task_registry.make_env("widowGo1_adaptive", m, device=device)
+    state, _ = cpu_env.reset(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    state.robot.q[:, 19:25] = f32(np.array([0.3, -0.6, 0.8, 0.4, 0.7, 0.3])
+                                  + 0.1 * rng.normal(size=(m, 6)))
+    state.robot.qd[:] = f32(0.5 * rng.normal(size=tuple(state.robot.qd.shape)))
+    state.curr_ee_goal_cart[:] = f32(np.array([0.5, 0.0, 0.4])
+                                     + 0.2 * rng.normal(size=(m, 3)))
+    want = cpu_env._osc_target(state)
+    got = gpu_env._osc_target(state_to_card(state, device)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3,
+                               msg=lambda s: f"_osc_target: {s}")
+    osc_err = float((got - want).abs().max())
+    log(f"osc check: card vs CPU, {m} envs, max_abs_err={osc_err:.3g} "
+        f"(|target| max {float(want.abs().max()):.3g})")
+    call_ms = {}
+    for n in (VARIANT_ENVS, NUM_ENVS) if profile else ():
+        env, _ = task_registry.make_env("widowGo1_adaptive", n, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        state, _ = env.reset(gen)
+        env._osc_target(state)          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            env._osc_target(state)
+        torch.cuda.synchronize()
+        call_ms[n] = (time.perf_counter() - t0) * 100.0
+        log(f"profile: _osc_target x {n} envs, {call_ms[n]:.2f} ms of wall "
+            f"time per call (one call per policy step)")
+    return osc_err, call_ms
 
 
 def main():
@@ -361,6 +682,15 @@ def main():
     rows = kernel_phase(device)
     step_check(device)
     collects, launches = slice_phase(device, profile)
+    training, n = train_phase(device, profile)
+    launches += n
+    update_err = update_check(device)
+    variants = []
+    for width in (VARIANT_ENVS, NUM_ENVS) if profile else (VARIANT_ENVS,):
+        variant, n = variant_train(device, width)
+        variants.append(variant)
+        launches += n
+    osc_err, osc_ms = osc_check(device, profile)
 
     main_row = rows[0]
     kernels = [dict(
@@ -374,7 +704,11 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, kernel_rows=rows,
-                       collects=collects), f, indent=1)
+                       collects=collects, training=training,
+                       update_check_max_abs_err=update_err,
+                       variants=variants, osc_check_max_abs_err=osc_err,
+                       osc_target_call_ms=osc_ms),
+                  f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run uses one card, whatever else the host holds
     print(json.dumps({"ok": True, "device": {

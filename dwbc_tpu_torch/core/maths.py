@@ -1,6 +1,7 @@
 """Quaternion / rotation / spherical-coordinate math on torch tensors.
 
-Counterpart of dwbc_tpu/core/maths.py (the rollout's subset).
+Counterpart of dwbc_tpu/core/maths.py (the subset the rollout and the
+OSC expert need).
 Conventions are the reference's:
   * quaternions are (x, y, z, w);
   * euler angles are extrinsic XYZ (roll, pitch, yaw);
@@ -40,6 +41,10 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         aw * bz + ax * by - ay * bx + az * bw,
         aw * bw - ax * bx - ay * by - az * bz,
     ], dim=-1)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -115,6 +120,20 @@ def euler_from_quat(q: torch.Tensor):
     return roll, pitch, yaw
 
 
+def yaw_quat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion keeping only the yaw component of q."""
+    _, _, yaw = euler_from_quat(q)
+    z = torch.zeros_like(yaw)
+    return quat_from_euler_xyz(z, z, yaw)
+
+
+def orientation_error(desired: torch.Tensor, current: torch.Tensor) -> torch.Tensor:
+    """Axis-angle-ish orientation error used by the OSC expert
+    (reference widowGo1.py:1223)."""
+    q_r = quat_mul(desired, quat_conjugate(current))
+    return q_r[..., :3] * torch.sign(q_r[..., 3:4])
+
+
 # ---------------------------------------------------------------------------
 # spherical coords (l, pitch, yaw)
 
@@ -146,3 +165,18 @@ def uniform(gen: torch.Generator, shape, lo, hi, device) -> torch.Tensor:
 def rand_sign(gen: torch.Generator, shape, device) -> torch.Tensor:
     return torch.where(torch.rand(shape, generator=gen, device=device) < 0.5,
                        1.0, -1.0)
+
+
+# ---------------------------------------------------------------------------
+# small-matrix linear algebra
+
+
+def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b for SPD matrices A (..., n, n) by a Cholesky
+    factorisation, batched over the leading dims (n is small, 6 for the
+    OSC task-space inertia). b is (..., n) or (..., n, k). Raises where a
+    matrix is not positive definite; the callers damp theirs."""
+    L = torch.linalg.cholesky(A)
+    if b.dim() == A.dim():
+        return torch.cholesky_solve(b, L)
+    return torch.cholesky_solve(b[..., None], L)[..., 0]

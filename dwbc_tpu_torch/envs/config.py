@@ -100,6 +100,9 @@ class ControlCfg:
     )
     decimation: int = 4
     torque_supervision: bool = False
+    # opt-in gravity-droop compensation of the leg PD targets
+    # (WidowGo1Env.enable_droop_compensation); off = reference parity
+    droop_compensation: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

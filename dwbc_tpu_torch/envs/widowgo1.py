@@ -10,10 +10,10 @@ explicit `EnvState` of tensors. Random draws come from the
 `torch.Generator` the state carries (the JAX package threads a PRNG key
 instead, so the two packages draw different numbers from one seed).
 
-The default widowGo1 configuration is covered. The OSC torque-supervision
-target, adaptive arm gains, gravity-droop compensation and the
-terrain-relative spawn are off by default and not ported yet: a config
-that enables adaptive gains or torque supervision is refused.
+The variants are ported too: adaptive arm gains (24 actions, the last 6
+arm kp deltas), the OSC torque-supervision target in `StepOut.extras`,
+the opt-in gravity-droop compensation and terrain-relative spawn, and the
+terminal reward-scale curricula of a schedule-restarted resume.
 """
 
 from __future__ import annotations
@@ -43,11 +43,11 @@ class EnvState:
     common_step: int                 # policy steps since the batch was built
     generator: torch.Generator       # the env's random stream
     # control buffers
-    actions: torch.Tensor            # (N, 18) delayed actions in effect
-    last_actions: torch.Tensor       # (N, 18)
+    actions: torch.Tensor            # (N, num_actions) delayed actions in effect
+    last_actions: torch.Tensor       # (N, num_actions)
     last_dof_vel: torch.Tensor       # (N, 20)
-    action_history: torch.Tensor     # (N, delay+2, 18)
-    obs_history: torch.Tensor        # (N, hist, 76)
+    action_history: torch.Tensor     # (N, delay+2, num_actions)
+    obs_history: torch.Tensor        # (N, hist, num_proprio)
     torques: torch.Tensor            # (N, 20) last applied torques
     # commands & EE goals
     commands: torch.Tensor           # (N, 3) [vx, vy(=0), wyaw]
@@ -112,10 +112,6 @@ class WidowGo1Env:
 
     def __init__(self, cfg: WidowGo1Cfg = WidowGo1Cfg(), num_envs: int = 64,
                  seed: int = 1, device="cuda"):
-        if cfg.control.adaptive_arm_gains or cfg.control.torque_supervision:
-            raise NotImplementedError(
-                "adaptive arm gains and OSC torque supervision are not "
-                "ported yet")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.num_envs = num_envs
@@ -142,12 +138,23 @@ class WidowGo1Env:
         q_ref[6] = 1.0
         q_ref[2] = cfg.init_state.pos[2]
         q_ref[7:] = torch.as_tensor(cfg.init_state.default_joint_angles)
+        self._q_ref = q_ref
         self.ctx = engine.build_ctx(m, q_ref)
         self.sim_params = engine.SimParams(
             dt=cfg.sim.dt, contact=ContactParams(dt=cfg.sim.dt))
 
         self.p_gains = f32(cfg.control.stiffness)        # (18,)
         self.d_gains = f32(cfg.control.damping)
+        # opt-in gravity-droop compensation (default off = reference
+        # parity), see enable_droop_compensation
+        self.droop_comp = torch.zeros(18, device=dev)
+        # opt-in terrain-relative spawn at ground + 0.40 m instead of the
+        # reference's absolute 0.42 m (see _reset_envs). The JAX package
+        # guards this flag and droop_comp against changes after its step
+        # has been traced, because it jits `step` with the env static;
+        # there is no trace here, so a flag set later simply takes effect
+        # from the next step or reset.
+        self.spawn_relative = False
         self.action_scale = f32(cfg.control.action_scale)
         self.torque_limits = f32(m.dof_effort)            # (20,)
         self.dof_lower = f32(m.dof_lower)
@@ -186,6 +193,10 @@ class WidowGo1Env:
         self.fused_step = fused.make_fused_substep(
             m, self.sim_params, self.hf, self.ctx, self.feet_geoms,
             device=dev, box_half_extents=(bs / 2,) * 3)
+        if cfg.control.droop_compensation:
+            self.enable_droop_compensation()
+        self.osc_kp = f32(cfg.arm.osc_kp)
+        self.osc_kd = f32(cfg.arm.osc_kd)
         self.z_invariant_offset = 0.53   # widowGo1.py:597
         self.sphere_error_scale = f32(cfg.goal_ee.sphere_error_scale)
         self.orn_error_scale = f32(cfg.goal_ee.orn_error_scale)
@@ -216,16 +227,25 @@ class WidowGo1Env:
     # ------------------------------------------------------------------
     # curriculum (mirrors widowGo1.py:675-692)
 
+    # When True, the two REWARD-SCALE curricula (tracking_ee,
+    # tracking_ang_vel_yaw_exp) are pinned at their terminal values while
+    # the range curricula still follow the counter. Used by schedule-
+    # restarted resumes: replaying the reward-scale ramp on a policy whose
+    # value function already prices the terminal arm reward re-creates a
+    # net-negative-life trap.
+    terminal_reward_scales = False
+
     def curriculum(self, counter: float):
         c = self.cfg.commands
         g = self.cfg.goal_ee
+        scale_cnt = float("inf") if self.terminal_reward_scales else counter
         return dict(
             lin_vel_x=_lerp_sched(counter, c.lin_vel_x_schedule,
                                   c.init_lin_vel_x, c.final_lin_vel_x),
             ang_vel_yaw=_lerp_sched(counter, c.ang_vel_yaw_schedule,
                                     c.init_ang_vel_yaw, c.final_ang_vel_yaw),
             tracking_ang_vel_yaw_exp=_lerp_sched(
-                counter, c.tracking_ang_vel_yaw_schedule, 0.0,
+                scale_cnt, c.tracking_ang_vel_yaw_schedule, 0.0,
                 c.final_tracking_ang_vel_yaw_exp),
             goal_ee_l=_lerp_sched(counter, g.l_schedule, g.init_pos_l,
                                   g.final_pos_l),
@@ -233,7 +253,7 @@ class WidowGo1Env:
                                   g.final_pos_p),
             goal_ee_y=_lerp_sched(counter, g.y_schedule, g.init_pos_y,
                                   g.final_pos_y),
-            tracking_ee=_lerp_sched(counter, g.tracking_ee_reward_schedule,
+            tracking_ee=_lerp_sched(scale_cnt, g.tracking_ee_reward_schedule,
                                     0.0, g.final_tracking_ee_reward),
         )
 
@@ -460,7 +480,14 @@ class WidowGo1Env:
         base_xy = torch.stack([torch.clamp(base_xy[:, 0], max=self._wall_x),
                                base_xy[:, 1]], -1)
         ground = self.hf.sample(base_xy[:, 0], base_xy[:, 1])
-        base_z = torch.full_like(ground, cfg.init_state.pos[2])
+        if self.spawn_relative:
+            # opt-in divergence: terrain-relative spawn at ground + 0.40 ~=
+            # stance height + 1.5 cm. The absolute spawn gives the deepest
+            # drop exactly on the low cells with the least z-margin, and
+            # the landing transient terminates many fresh spawns.
+            base_z = ground + 0.40
+        else:
+            base_z = torch.full_like(ground, cfg.init_state.pos[2])
         quat = torch.zeros((N, 4), device=dev)
         quat[:, 3] = 1.0
         q = torch.cat([base_xy, base_z[:, None], quat, dof_pos], -1)
@@ -517,10 +544,22 @@ class WidowGo1Env:
     # torque model (widowGo1.py:1262-1295)
 
     def _pd_torques(self, actions, dof_pos, dof_vel, motor_strength):
-        """PD torques on the 18 actuated dofs + zero gripper torques."""
+        """PD torques on the 18 actuated dofs + zero gripper torques. With
+        adaptive_arm_gains the trailing 6 action dims are per-env arm kp
+        deltas, kd = 2*sqrt(kp) (widowGo1.py:1283-1288)."""
         scaled = actions[:, :18] * motor_strength * self.action_scale
-        target = scaled + self.default_dof_pos[None, :18]
-        tau = self.p_gains * (target - dof_pos) - self.d_gains * dof_vel
+        target = scaled + self.default_dof_pos[None, :18] + self.droop_comp
+        if self.cfg.control.adaptive_arm_gains:
+            # floored at 0 here; the update's forward model floors at 1e-6
+            # for its gradient (rl/ppo.py)
+            arm_p = torch.clamp(self.p_gains[12:] + actions[:, 18:24], min=0.0)
+            n = actions.shape[0]
+            p_g = torch.cat([self.p_gains[:12].expand(n, 12), arm_p], -1)
+            d_g = torch.cat([self.d_gains[:12].expand(n, 12),
+                             2.0 * torch.sqrt(arm_p)], -1)
+        else:
+            p_g, d_g = self.p_gains, self.d_gains
+        tau = p_g * (target - dof_pos) - d_g * dof_vel
         tau20 = torch.cat([tau, torch.zeros_like(tau[:, :2])], -1)
         return torch.clamp(tau20, -self.torque_limits, self.torque_limits)
 
@@ -545,6 +584,14 @@ class WidowGo1Env:
                                     actions[:, None, :]], 1)
         delayed = action_history[:, -cfg.env.action_delay - 1]
         state = _replace(state, actions=delayed, action_history=action_history)
+
+        # torque-supervision extras at substep 0, pre-physics
+        # (widowGo1.py:1178-1182)
+        extras = {}
+        if cfg.control.torque_supervision:
+            extras["target_arm_torques"] = self._osc_target(state)
+            extras["current_arm_dof_pos"] = state.robot.q[:, 7 + 12:7 + 18]
+            extras["current_arm_dof_vel"] = state.robot.qd[:, 6 + 12:6 + 18]
 
         # 2. decimation x physics (widowGo1.py:1175-1191)
         motor_strength = state.motor_strength
@@ -690,7 +737,7 @@ class WidowGo1Env:
         return state, StepOut(
             obs=obs, rew=rew, arm_rew=arm_rew, reset=reset_buf,
             time_outs=time_out, episode_stats=stats,
-            num_resets=torch.sum(reset_buf), extras={})
+            num_resets=torch.sum(reset_buf), extras=extras)
 
     def reset(self, gen: torch.Generator):
         """Full env-batch build + initial observation, drawing from `gen`
@@ -751,6 +798,86 @@ class WidowGo1Env:
         rolled = torch.cat([state.obs_history[:, 1:], prop[:, None, :]], 1)
         broadcast = prop[:, None, :].expand(-1, cfg.env.history_len, -1)
         return obs, torch.where(first, broadcast, rolled)
+
+    def enable_droop_compensation(self):
+        """Set the LEG PD-target gravity compensation: explicit PD at kp=50
+        droops tau_g/kp under gravity, sagging the stance below the
+        default-pose height; adding tau_g(q_default)/kp to the PD target
+        moves the standing equilibrium to the pose the config describes.
+        Standing legs feel gravity through the CONTACT reaction, not the
+        free-base bias: tau_leg = J_foot^T f with each foot carrying ~W/4.
+        The arm dofs are left uncompensated. Build-time work on the CPU;
+        the 18 numbers then move to the env's device."""
+        m = self.model
+        q_ref = self._q_ref.to("cpu")
+        weight = float(np.sum(np.asarray(m.mass, np.float32))) * 9.81
+        f_foot = torch.tensor([0.0, 0.0, weight / 4.0])
+        p_gains = self.p_gains.cpu()
+        droop = [0.0] * 18
+        geom_body = np.asarray(m.geom_body)
+        geom_off = np.asarray(m.geom_pos, np.float32)
+        kin = dynamics.fk(m, q_ref, torch.zeros(m.nv))
+        for g in self.feet_geoms:
+            b = int(geom_body[g])
+            J = dynamics.body_jacobian(m, q_ref, b,
+                                       torch.as_tensor(geom_off[g]), kin=kin)
+            # the 3 joints of this leg: ancestors of the calf body
+            i, cols = b, []
+            while i > 0 and len(cols) < 3:
+                cols.append(6 + i - 1)
+                i = int(m.parent[i])
+            for c in cols:
+                j = c - 6
+                if j < 12:  # leg dofs only
+                    droop[j] = float(J[0:3, c] @ f_foot) / float(p_gains[j])
+        self.droop_comp = torch.tensor(droop, dtype=torch.float32,
+                                       device=self.device)
+
+    def _osc_target(self, state: EnvState):
+        """Operational-space control expert torques for supervision
+        (widowGo1.py:1217-1242): u = J^T Lambda (kp dpose - kd v_ee) + g(q),
+        (N, 6), batched over the envs."""
+        m = self.model
+        q, qd = state.robot.q, state.robot.qd
+        arm = slice(6 + 12, 6 + 18)
+        M = dynamics.crba(m, state.inert, q)
+        mm = M[:, arm, arm]
+        kin = dynamics.fk(m, q, qd)
+        j_eef = dynamics.body_jacobian(m, q, self.gripper_body,
+                                       self.ee_offset, kin=kin)[:, :, arm]
+        rot = kin.rot[:, self.gripper_body]
+        r_off = (rot @ self.ee_offset)
+        ee_pos = kin.pos[:, self.gripper_body] + r_off
+        ee_orn = maths.mat_to_quat(rot)
+        # ee spatial velocity [lin; ang]
+        vel = kin.vel[:, self.gripper_body]
+        w_w = (rot @ vel[:, :3, None])[..., 0]
+        v_w = (rot @ vel[:, 3:, None])[..., 0] + torch.linalg.cross(w_w, r_off)
+        ee_vel6 = torch.cat([v_w, w_w], -1)
+
+        # Damped solves instead of a pseudo-inverse: an SVD-based pinv on
+        # an ill-conditioned arm block (collapsed or singular
+        # configurations) gives NaNs that poison the supervision loss. mm
+        # is SPD, and Lambda = (J M^-1 J^T + lambda I)^-1 is the standard
+        # damped-least-squares OSC; the damping only matters near
+        # singularities.
+        eye6 = torch.eye(6, device=self.device)
+        m_inv_jt = maths.solve_spd(mm + 1e-6 * eye6, j_eef.transpose(-1, -2))
+        a = j_eef @ m_inv_jt + 1e-4 * eye6
+        yq = maths.yaw_quat(q[:, 3:7])
+        target = torch.cat([q[:, 0:2], torch.full_like(
+            q[:, :1], self.z_invariant_offset)], -1) + maths.quat_rotate(
+            yq, state.curr_ee_goal_cart)
+        pos_err = target - ee_pos
+        ee_orn_des = torch.tensor([0.0, 0.7071068, 0.0, 0.7071068],
+                                  device=self.device)
+        orn_err = maths.orientation_error(ee_orn_des, maths.normalize(ee_orn))
+        dpose = torch.cat([pos_err, orn_err], -1)
+        wrench = maths.solve_spd(a, self.osc_kp * dpose - self.osc_kd * ee_vel6)
+        u = (j_eef.transpose(-1, -2) @ wrench[..., None])[..., 0]
+        # gravity compensation from the RNEA bias at zero velocity
+        bias = dynamics.rnea_bias(m, state.inert, q, torch.zeros_like(qd))
+        return u + bias[:, arm]
 
     def check_termination(self, state: EnvState, roll, pitch, curr_goal):
         """Goal-conditioned roll/pitch + absolute-z + contact-force

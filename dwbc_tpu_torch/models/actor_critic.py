@@ -8,7 +8,9 @@ with the flax model's layout at the public boundary: observations are
     T in {10, 20, 50} step history -> linear (reference :39-84);
   * Actor: privileged-obs encoder (24->64->20) OR history encoder to the
     same 20-d latent, shared backbone, 12-d tanh leg head and 6-d tanh
-    arm head (reference :119-229);
+    arm head (reference :119-229); with `adaptive_arm_gains` the arm head
+    has 12 outputs, the last 6 (arm kp deltas) scaled by
+    `adaptive_arm_gains_scale`;
   * Critic: prop+priv input, shared backbone, leg/arm value heads;
   * learnable per-joint std;
   * per-head (leg/arm) log-prob and entropy sums (reference :326-345).
@@ -84,9 +86,13 @@ class Actor(nn.Module):
     def __init__(self, num_prop=76, num_priv=24, num_hist=10,
                  priv_encoder_dims=(64, 20), actor_hidden_dims=(128,),
                  leg_head_dims=(128, 128), arm_head_dims=(128, 128),
-                 num_leg_actions=12, num_arm_actions=6, activation="elu"):
+                 num_leg_actions=12, num_arm_actions=6, activation="elu",
+                 adaptive_arm_gains=False, adaptive_arm_gains_scale=10.0):
         super().__init__()
         self.num_prop, self.num_priv, self.num_hist = num_prop, num_priv, num_hist
+        self.num_arm_actions = num_arm_actions
+        self.adaptive_arm_gains = adaptive_arm_gains
+        self.adaptive_arm_gains_scale = adaptive_arm_gains_scale
         self.act = _ACT[activation]
         self.priv_encoder_layers = _mlp(num_priv, priv_encoder_dims)
         self.history_encoder = StateHistoryEncoder(
@@ -95,7 +101,9 @@ class Actor(nn.Module):
                                     actor_hidden_dims)
         h = actor_hidden_dims[-1]
         self.leg_layers = _mlp(h, tuple(leg_head_dims) + (num_leg_actions,))
-        self.arm_layers = _mlp(h, tuple(arm_head_dims) + (num_arm_actions,))
+        # with adaptive gains the arm head also emits 6 arm kp deltas
+        n_arm = num_arm_actions * (2 if adaptive_arm_gains else 1)
+        self.arm_layers = _mlp(h, tuple(arm_head_dims) + (n_arm,))
 
     def infer_priv_latent(self, obs: torch.Tensor) -> torch.Tensor:
         x = obs[..., self.num_prop:self.num_prop + self.num_priv]
@@ -119,8 +127,12 @@ class Actor(nn.Module):
         x = torch.cat([obs[..., :self.num_prop], latent], -1)
         for layer in self.backbone_layers:
             x = self.act(layer(x))
-        return torch.cat([self._head(self.leg_layers, x),
-                          self._head(self.arm_layers, x)], -1)
+        arm = self._head(self.arm_layers, x)
+        if self.adaptive_arm_gains:
+            n = self.num_arm_actions
+            arm = torch.cat([arm[..., :n],
+                             self.adaptive_arm_gains_scale * arm[..., n:]], -1)
+        return torch.cat([self._head(self.leg_layers, x), arm], -1)
 
 
 class Critic(nn.Module):
@@ -156,6 +168,8 @@ class ActorCritic(nn.Module):
                  num_arm_actions: int = 6,
                  init_std: Tuple[float, ...] = tuple([0.8, 1.0, 1.0] * 4
                                                      + [1.0] * 6),
+                 adaptive_arm_gains: bool = False,
+                 adaptive_arm_gains_scale: float = 10.0,
                  activation: str = "elu",
                  actor_hidden_dims: Sequence[int] = (128,),
                  critic_hidden_dims: Sequence[int] = (128,),
@@ -165,9 +179,11 @@ class ActorCritic(nn.Module):
         super().__init__()
         self.actor = Actor(num_prop, num_priv, num_hist, priv_encoder_dims,
                            actor_hidden_dims, leg_head_dims, arm_head_dims,
-                           num_leg_actions, num_arm_actions, activation)
+                           num_leg_actions, num_arm_actions, activation,
+                           adaptive_arm_gains, adaptive_arm_gains_scale)
         self.critic = Critic(num_prop, num_priv, critic_hidden_dims,
                              leg_head_dims, arm_head_dims, activation)
+        self.init_std = tuple(init_std)
         self.std = nn.Parameter(torch.tensor(init_std, dtype=torch.float32))
 
     def forward(self, obs, hist_encoding: bool = False):

@@ -1,11 +1,13 @@
 """Task registry: name -> (env factory, ppo config, runner settings).
 
 Counterpart of dwbc_tpu/utils/task_registry.py; the port registers the
-flagship task, widowGo1, so far.
+widowGo1 family (rough, flat, adaptive). The legged-robot and recurrent
+tasks of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, NamedTuple
 
 from ..rl import ppo as ppo_lib
@@ -19,17 +21,51 @@ class TaskSpec(NamedTuple):
     experiment_name: str
 
 
-def _widow_env(num_envs, seed, device):
-    from ..envs.config import WidowGo1Cfg
+def _widow_env(num_envs, seed, device, terrain=None, adaptive=False):
+    from ..envs.config import (ControlCfg, EnvCfg, TerminationCfg,
+                               TerrainCfg, WidowGo1Cfg)
     from ..envs.widowgo1 import WidowGo1Env
-    return WidowGo1Env(WidowGo1Cfg(), num_envs=num_envs, seed=seed,
-                       device=device)
+    cfg = WidowGo1Cfg()
+    if terrain is not None:
+        cfg = dataclasses.replace(cfg, terrain=TerrainCfg(mesh_type=terrain))
+    if terrain == "plane":
+        # the reference has NO flat widow config; its absolute
+        # z_threshold=0.325 was tuned against the Perlin height
+        # distribution, where terrain diversity hands some envs 0.2+ m of
+        # margin. On a plane every env shares the same 0.06 m knife-edge.
+        # 0.25 still terminates true collapses (go1 trunk bottoms out
+        # ~0.12) while restoring the exploration window the rough task
+        # gets from terrain diversity.
+        cfg = dataclasses.replace(
+            cfg, termination=TerminationCfg(z_threshold=0.25))
+    if adaptive:
+        # adaptive arm gains + OSC torque supervision variant
+        # (widowGo1_config.py:168-169 flags; actions widen to 18+6, the
+        # extra dims entering proprio like any action)
+        cfg = dataclasses.replace(
+            cfg,
+            control=ControlCfg(adaptive_arm_gains=True,
+                               torque_supervision=True),
+            env=EnvCfg(num_actions=24, num_proprio=76 + 6))
+    return WidowGo1Env(cfg, num_envs=num_envs, seed=seed, device=device)
+
+
+_WIDOW_PPO = ppo_lib.PPOConfig()  # widowGo1_config.py:343-366 leaves
+
+_ADAPTIVE_PPO = dataclasses.replace(
+    _WIDOW_PPO, torque_supervision=True, adaptive_arm_gains=True,
+    min_policy_std=tuple([0.15, 0.25, 0.25] * 4 + [0.2] * 3 + [0.05] * 3
+                         + [0.05] * 6))
 
 
 TASKS: Dict[str, TaskSpec] = {
-    # widowGo1_config.py:343-366 leaves
-    "widowGo1": TaskSpec(_widow_env, ppo_lib.PPOConfig(), 40, 5000,
-                         "rough_widowGo1"),
+    "widowGo1": TaskSpec(_widow_env, _WIDOW_PPO, 40, 5000, "rough_widowGo1"),
+    "widowGo1_flat": TaskSpec(
+        lambda n, s, d: _widow_env(n, s, d, terrain="plane"), _WIDOW_PPO, 40,
+        5000, "flat_widowGo1"),
+    "widowGo1_adaptive": TaskSpec(
+        lambda n, s, d: _widow_env(n, s, d, adaptive=True), _ADAPTIVE_PPO, 40,
+        5000, "rough_widowGo1_adaptive"),
 }
 
 
@@ -38,3 +74,21 @@ def make_env(task: str, num_envs=None, seed: int = 1, device="cuda"):
     unless the caller asks for the CPU)."""
     spec = TASKS[task]
     return spec.make_env(num_envs or spec.default_num_envs, seed, device), spec
+
+
+def make_runner(task: str, num_envs=None, seed: int = 1, log_dir=None,
+                device="cuda", ppo_overrides=None, env_setup=None):
+    """(env, runner, spec). `env_setup(env)` sets env flags
+    (spawn_relative, droop compensation, ...) before the runner's initial
+    reset; `ppo_overrides` replaces fields of the task's PPOConfig."""
+    from ..rl.runner import OnPolicyRunner
+    env, spec = make_env(task, num_envs, seed, device)
+    if env_setup is not None:
+        env_setup(env)
+    if ppo_overrides:
+        spec = spec._replace(
+            ppo_cfg=dataclasses.replace(spec.ppo_cfg, **ppo_overrides))
+    runner = OnPolicyRunner(env, spec.ppo_cfg,
+                            num_steps_per_env=spec.num_steps_per_env,
+                            log_dir=log_dir, seed=seed)
+    return env, runner, spec

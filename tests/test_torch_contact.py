@@ -116,6 +116,7 @@ def test_plain_law_matches_jax_law(n, ng, nb, sorted):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, ng, nb, sorted", [
     pytest.param(8192, 84, 21, True, id="8192"),
+    pytest.param(1024, 84, 21, True, id="1024"),
     pytest.param(8192 + 77, 84, 21, True, id="8269"),
     pytest.param(1, 13, 5, True, id="13x5x1"),
     pytest.param(33, 128, 32, True, id="128x32x33"),
