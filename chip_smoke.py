@@ -13,7 +13,9 @@ Phases, each of which raises on failure (exit code != 0):
      KERNEL_SHAPES: widowGo1's 84 spheres on 21 bodies x 8192 envs (the
      slice and train phases' shape), x 1024 envs (the variant phase's), a
      ragged 8192 + 77, one env, the kernel's limits (128 spheres, 32
-     bodies) and a geom->body map in random order. Per shape: its device
+     bodies), a geom->body map in random order, and the legged robots'
+     shapes at 4096 envs on 13 bodies: 92 (go1), 76 (a1), 28 (anymal_b),
+     22 (anymal_c) and 5 (cassie) spheres. Per shape: its device
      time per launch (a CUDA graph of TIMED_LAUNCHES launches rotating over
      N_SETS input sets, so that at 84 x 8192 each launch reads its inputs
      from HBM and not from the 50 MB L2), achieved GB/s and share of the
@@ -51,7 +53,30 @@ Phases, each of which raises on failure (exit code != 0):
      atol 1e-3. With --profile, the same two iterations once more at
      8192 envs with the peak device memory, and the wall time of one
      `_osc_target` call at both widths.
-The last two lines are the kernels' JSON record and
+  9. legged: make_runner("go1", 4096 envs) on the curriculum grid terrain
+     (187 measured heights, 235-wide observation), three iterations of 24
+     steps through OnPolicyRunner.learn with the MLP policy: 288 launches;
+     finite observations, rewards, state and parameters; every parameter
+     moved; 3 lines of metrics.jsonl with Episode/terrain_level; a
+     checkpoint round trip; one env step that must not wait for the host
+     (torch.cuda.set_sync_debug_mode). Prints collect seconds, learn
+     seconds and Perf/total_fps per iteration. With --profile, a
+     torch.profiler table of one go1 env step;
+ 10. legged step check: one go1 step (grid terrain, heights) on the card
+     against the same step on the CPU, 64 envs, same state, noise off;
+ 11. actuator net: make_runner("anymal_c_rough", 4096 envs), two
+     iterations (192 launches): the LSTM hidden state is non-zero after a
+     collect and zero on the rows of the envs that just reset;
+ 12. recurrent: make_runner("go1_flat_lstm", 4096 envs), two iterations
+     through RecurrentRunner.learn and a third by hand (collect and
+     update timed apart; 288 launches); and one recurrent `update` on the
+     card against the CPU (T = 8, N = 16), parameters within rtol 1e-4 /
+     atol 1e-5;
+ 13. the other robots: cassie, a1 and anymal_b, one iteration each at
+     4096 envs (96 launches each), so that every timed kernel shape is
+     also launched from an env.
+Every env a phase builds must have its (spheres, bodies, envs) among
+KERNEL_SHAPES. The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Results are also written to chiprun_out/chip_smoke.json.
 """
@@ -79,6 +104,8 @@ NUM_ENVS = 8192
 VARIANT_ENVS = 1024
 NUM_STEPS = 40
 DECIMATION = 4
+LEGGED_ENVS = 4096
+LEGGED_STEPS = 24
 # float operations of the contact law per (sphere, env), counted from
 # sim/contact.fused_terrain_law: plane evaluation 13, mass share 3,
 # normal/tangent speeds and directional masses 57, warm-start split 16,
@@ -89,7 +116,10 @@ LAW_FLOPS_PER_ELEM = 140
 KERNEL_SHAPES = ((84, 21, NUM_ENVS, True), (84, 21, VARIANT_ENVS, True),
                  (84, 21, NUM_ENVS + 77, True),
                  (13, 5, 1, True), (128, 32, 33, True),
-                 (84, 21, NUM_ENVS, False))
+                 (84, 21, NUM_ENVS, False),
+                 (92, 13, LEGGED_ENVS, True), (76, 13, LEGGED_ENVS, True),
+                 (28, 13, LEGGED_ENVS, True), (22, 13, LEGGED_ENVS, True),
+                 (5, 13, LEGGED_ENVS, True))
 N_SETS = 3            # 3 x 41 MB of inputs at 84 x 8192 > the 50 MB L2
 TIMED_LAUNCHES = 60
 PLAIN_LAUNCHES = 12   # ~100 elementwise kernels each
@@ -231,8 +261,9 @@ def kernel_phase(device):
     return rows
 
 
-def state_to_card(state, device):
-    """A CPU EnvState copied to the card (through interop's numpy tree)."""
+def state_to_card(state, device, from_numpy=None):
+    """A CPU EnvState (or, with interop.legged_state_from_numpy, a
+    LeggedState) copied to the card through interop's numpy tree."""
     import dataclasses as dc
     from dwbc_tpu_torch.interop import env_state_from_numpy
 
@@ -246,7 +277,7 @@ def state_to_card(state, device):
                     if f.name != "generator"}
         return x.numpy() if torch.is_tensor(x) else np.asarray(x)
 
-    return env_state_from_numpy(tree(state), device=device)
+    return (from_numpy or env_state_from_numpy)(tree(state), device=device)
 
 
 def step_check(device):
@@ -383,6 +414,18 @@ def fresh_dir(name):
     path = os.path.join(OUT_DIR, name)
     shutil.rmtree(path, ignore_errors=True)
     return path
+
+
+def drop_checkpoints():
+    """Remove the smoke runs' model_N files (tens of MB together) once
+    every phase has read what it needs: chiprun_out/ keeps the metrics."""
+    for name in os.listdir(OUT_DIR):
+        log_dir = os.path.join(OUT_DIR, name)
+        if "_smoke" not in name or not os.path.isdir(log_dir):
+            continue
+        for f in os.listdir(log_dir):
+            if f.startswith("model_"):
+                os.remove(os.path.join(log_dir, f))
 
 
 def read_metrics(log_dir, lines):
@@ -652,6 +695,368 @@ def osc_check(device, profile):
     return osc_err, call_ms
 
 
+def check_kernel_shape(env):
+    """Every shape an env gives the kernel has a kernel-vs-plain row."""
+    shape = (len(env.model.geom_body), env.model.nb, env.num_envs)
+    if shape not in {s[:3] for s in KERNEL_SHAPES}:
+        raise AssertionError(f"no kernel check at (ng, nb, N) = {shape}")
+    return shape
+
+
+def legged_train(device, task, iterations):
+    """`iterations` training iterations of a single-head task at 4096
+    envs x 24 steps through make_runner / OnPolicyRunner.learn, one call
+    of learn each: (env, runner, log_dir, per-iteration rows, launches)."""
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    from dwbc_tpu_torch.utils import task_registry
+
+    log_dir = fresh_dir(f"{task}_smoke")
+    contact_law.launches = 0
+    t0 = time.time()
+    env, runner, spec = task_registry.make_runner(
+        task, num_envs=LEGGED_ENVS, seed=1, log_dir=log_dir, device=device)
+    torch.cuda.synchronize()
+    shape = check_kernel_shape(env)
+    log(f"{task} build: make_runner x {LEGGED_ENVS} envs, kernel shape "
+        f"{shape}, obs {env.num_obs}, terrain "
+        f"{tuple(env.hf.height.shape)}, {time.time() - t0:.2f} s")
+    if spec.num_steps_per_env != LEGGED_STEPS:
+        raise AssertionError(f"{task}: {spec.num_steps_per_env} steps")
+    start = model_snapshot(runner.model)
+    step_rew = []
+    for it in range(iterations):
+        runner.learn(1, log_every=1)
+        traj = runner.last_traj
+        step_rew.append(float(traj.rewards.mean()))
+        if tuple(traj.obs.shape) != (LEGGED_STEPS, LEGGED_ENVS, env.num_obs):
+            raise AssertionError(f"traj.obs shape {tuple(traj.obs.shape)}")
+        if tuple(traj.rewards.shape) != (LEGGED_STEPS, LEGGED_ENVS, 1):
+            raise AssertionError(f"traj.rewards shape "
+                                 f"{tuple(traj.rewards.shape)}")
+        state = runner.env_state
+        for name, t in (("obs", traj.obs), ("rewards", traj.rewards),
+                        ("values", traj.values), ("q", state.robot.q),
+                        ("qd", state.robot.qd),
+                        ("carry", state.contact_carry["terr"]),
+                        ("hidden", state.actuator_hidden)):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{task} iteration {it}: non-finite "
+                                     f"{name}")
+    launches = contact_law.launches
+    expect = iterations * LEGGED_STEPS * DECIMATION
+    if launches != expect:
+        raise AssertionError(f"{task} launched the contact kernel "
+                             f"{launches} times, expected {expect}")
+    for k, v in model_snapshot(runner.model).items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{task}: non-finite {k}")
+        if torch.equal(v, start[k]):
+            raise AssertionError(f"{task}: {k} did not move")
+    if (runner.ppo_state.counter, runner.it) != (iterations, iterations):
+        raise AssertionError(f"{task}: counter {runner.ppo_state.counter}, "
+                             f"it {runner.it}")
+    rows = read_metrics(log_dir, iterations)
+    for r, rew in zip(rows, step_rew):
+        if not 0.0 <= r["Episode/terrain_level"] <= 9.0:
+            raise AssertionError(f"Episode/terrain_level = "
+                                 f"{r['Episode/terrain_level']}")
+        log(f"{task} x {LEGGED_ENVS} envs it {r['it']}: collect "
+            f"{r['Perf/collection time']:.3f} s, learn "
+            f"{r['Perf/learning_time']:.4f} s, Perf/total_fps "
+            f"{r['Perf/total_fps']}, terrain level "
+            f"{r['Episode/terrain_level']:.2f}, mean step reward "
+            f"{rew:.4f}")
+    result = dict(task=task, num_envs=LEGGED_ENVS, kernel_shape=shape,
+                  collect_s=[r["Perf/collection time"] for r in rows],
+                  learn_s=[r["Perf/learning_time"] for r in rows],
+                  fps=[r["Perf/total_fps"] for r in rows], launches=launches)
+    return env, runner, log_dir, result
+
+
+def legged_phase(device, profile):
+    """go1 on the grid terrain at full width, then what only this phase
+    checks: the checkpoint, a step without host synchronisation, and with
+    `profile` the table of one env step."""
+    import warnings
+    from dwbc_tpu_torch.utils import task_registry
+
+    env, runner, log_dir, result = legged_train(device, "go1", 3)
+    if env.num_obs != 235 or env.height_points.shape[0] != 187:
+        raise AssertionError("go1: not the 187-point height scan")
+    path = os.path.join(log_dir, "model_roundtrip")
+    runner.save(path)
+    _, other, _ = task_registry.make_runner("go1", num_envs=64, seed=2,
+                                            device=device)
+    other.load(path)
+    for (k, a), b in zip(runner.model.state_dict().items(),
+                         other.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"go1 checkpoint round trip changed {k}")
+    if (other.ppo_state.counter, other.it) != (3, 3):
+        raise AssertionError("go1 checkpoint round trip lost the counters")
+    log(f"go1 checkpoint: saved, loaded into a second runner, parameters "
+        f"and counter equal ({os.path.getsize(path) / 1e6:.2f} MB)")
+
+    # a step must queue its work and return: any operation that waits for
+    # the card (an .item(), a tensor built from Python numbers) warns here
+    actions = torch.zeros((LEGGED_ENVS, env.num_actions), device=device)
+    state = runner.env_state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        env.step(state, actions)
+        queue_s = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    if syncs:
+        raise AssertionError(f"go1 env.step waited for the card "
+                             f"{len(syncs)} times: {syncs[:3]}")
+    log(f"go1 env.step x {LEGGED_ENVS} envs: no host synchronisation; "
+        f"queued in {queue_s:.4f} s, done in {step_s:.4f} s")
+    result.update(step_queue_s=queue_s, step_done_s=step_s)
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            t0 = time.time()
+            env.step(state, actions)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        events = p.key_averages()
+        cuda_rows = device_kernel_rows(events)
+        busy = sum(e.self_device_time_total for e in cuda_rows) / 1e6
+        top = [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+               for e in cuda_rows[:6]]
+        n_kernels = sum(e.count for e in cuda_rows)
+        table = events.table(sort_by="self_device_time_total", row_limit=40)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "profile_go1_step.txt"), "w") as f:
+            f.write(f"one go1 env.step, {LEGGED_ENVS} envs: wall {wall:.4f} "
+                    f"s, device busy {busy:.4f} s, {n_kernels} device "
+                    f"kernels\n{table}\n")
+        log(f"profile: one go1 env.step wall {wall:.4f} s, device busy "
+            f"{busy:.4f} s ({busy / wall:.1%}), {n_kernels} device kernels "
+            f"(chiprun_out/profile_go1_step.txt); top device operations "
+            f"(name, calls, ms): {top}")
+        result.update(profile_step_s=wall, device_busy_s=busy,
+                      device_kernels=n_kernels)
+    return result, result["launches"]
+
+
+def legged_step_check(device):
+    """One go1 step (grid terrain, heights) on the card against the CPU,
+    from the same state, observation noise off: no draw reaches what is
+    compared on the envs that do not reset."""
+    import dataclasses as dc
+    from dwbc_tpu_torch.envs import legged_config as lc
+    from dwbc_tpu_torch.envs.legged_robot import LeggedRobotEnv
+    from dwbc_tpu_torch.interop import legged_state_from_numpy
+
+    n = 64
+    cfg = lc.go1_rough()
+    cfg = dc.replace(cfg, noise=dc.replace(cfg.noise, add_noise=False))
+    cpu = LeggedRobotEnv(cfg, num_envs=n, seed=1, device="cpu")
+    gpu = LeggedRobotEnv(cfg, num_envs=n, seed=1, device=device)
+    state, _ = cpu.reset(torch.Generator().manual_seed(0))
+    # settle onto the terrain, so that the compared step is in contact
+    zeros = torch.zeros((n, 12))
+    for _ in range(12):
+        state, _ = cpu.step(state, zeros)
+    gstate = state_to_card(state, device, legged_state_from_numpy)
+    actions = torch.as_tensor(
+        0.3 * np.random.default_rng(0).normal(size=(n, 12)),
+        dtype=torch.float32)
+    s_c, o_c = cpu.step(state, actions)
+    s_g, o_g = gpu.step(gstate, actions.to(device))
+    torch.cuda.synchronize()
+    live = ~(o_c.reset | o_g.reset.cpu())
+    if not torch.equal(o_c.reset, o_g.reset.cpu()) or live.sum() < n // 2:
+        raise AssertionError("go1: card and CPU steps reset different envs")
+    in_contact = float((s_c.contact_carry["terr"].abs().sum(-1) > 0)
+                       .float().mean())
+    if in_contact < 0.01:
+        raise AssertionError("go1 step check: no contact in the scene")
+    for name, a, b, atol in (("obs", o_g.obs, o_c.obs, 1e-3),
+                             ("rew", o_g.rew, o_c.rew, 1e-5),
+                             ("q", s_g.robot.q, s_c.robot.q, 1e-3)):
+        torch.testing.assert_close(a.cpu()[live], b[live], rtol=1e-3,
+                                   atol=atol, msg=lambda m: f"go1 {name}: {m}")
+    err = float((o_g.obs.cpu()[live] - o_c.obs[live]).abs().max())
+    log(f"go1 step check: card vs CPU, {int(live.sum())}/{n} envs, "
+        f"{in_contact:.1%} of spheres in contact, obs max_abs_err={err:.3g}")
+    return err
+
+
+def actuator_phase(device):
+    """anymal_c_rough (the LSTM actuator net in the substep loop), two
+    iterations at 4096 envs."""
+    env, runner, _, result = legged_train(device, "anymal_c_rough", 2)
+    state = runner.env_state
+    n, nj = LEGGED_ENVS, env.model.nj
+    if tuple(state.actuator_hidden.shape) != (2, 2, n * nj, 8):
+        raise AssertionError(f"hidden shape "
+                             f"{tuple(state.actuator_hidden.shape)}")
+    per_env = state.actuator_hidden.reshape(2, 2, n, nj, 8).abs().amax(
+        (0, 1, 3, 4))
+    just_reset = state.reset_buf
+    n_reset = int(just_reset.sum())
+    if n_reset == 0:
+        raise AssertionError("no env reset in the last step: nothing to "
+                             "check the hidden reset on")
+    if bool(per_env[just_reset].any()):
+        raise AssertionError("hidden state not zero on envs that just reset")
+    if not bool((per_env[~just_reset] > 0).all()):
+        raise AssertionError("hidden state zero on an env that did not reset")
+    log(f"anymal_c_rough: hidden state zero on the {n_reset} envs that just "
+        f"reset, non-zero on the other {n - n_reset} (|h| max "
+        f"{float(per_env.max()):.3g})")
+    result["hidden_reset_rows"] = n_reset
+    return result, result["launches"]
+
+
+def recurrent_phase(device):
+    """go1_flat_lstm through RecurrentRunner at 4096 envs: two iterations
+    of learn, a third by hand to time collect and update apart."""
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    from dwbc_tpu_torch.rl.recurrent import RecurrentRunner
+    from dwbc_tpu_torch.utils import task_registry
+
+    log_dir = fresh_dir("go1_flat_lstm_smoke")
+    contact_law.launches = 0
+    env, runner, spec = task_registry.make_runner(
+        "go1_flat_lstm", num_envs=LEGGED_ENVS, seed=1, log_dir=log_dir,
+        device=device)
+    if not isinstance(runner, RecurrentRunner):
+        raise AssertionError(f"runner is {type(runner).__name__}")
+    shape = check_kernel_shape(env)
+    start = model_snapshot(runner.model)
+    iteration_s, step_rew = [], []
+    for it in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step_rew += runner.learn(1, log=None, log_every=1)
+        torch.cuda.synchronize()
+        iteration_s.append(time.time() - t0)
+    h0 = runner.carry
+    t0 = time.time()
+    (runner.env_state, runner.obs, runner.carry, runner.last_dones, traj,
+     last_values, ep_stats, nres) = runner.alg.collect(
+        runner.env_state, runner.obs, runner.carry, runner.last_dones,
+        runner.noise_gen)
+    torch.cuda.synchronize()
+    collect_s = time.time() - t0
+    t0 = time.time()
+    metrics = runner.alg.update(runner.ppo_state, traj, h0, last_values,
+                                runner.perm_gen)
+    torch.cuda.synchronize()
+    update_s = time.time() - t0
+    launches = contact_law.launches
+    expect = 3 * LEGGED_STEPS * DECIMATION
+    if launches != expect:
+        raise AssertionError(f"go1_flat_lstm launched the contact kernel "
+                             f"{launches} times, expected {expect}")
+    if tuple(traj.obs.shape) != (LEGGED_STEPS, LEGGED_ENVS, 48):
+        raise AssertionError(f"traj.obs shape {tuple(traj.obs.shape)}")
+    for name, t in (("obs", traj.obs), ("rewards", traj.rewards),
+                    ("values", traj.values), ("q", runner.env_state.robot.q),
+                    ("value_loss", metrics["value_loss"]),
+                    ("surrogate_loss", metrics["surrogate_loss"])):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"go1_flat_lstm: non-finite {name}")
+    for k, v in model_snapshot(runner.model).items():
+        if not bool(torch.isfinite(v).all()) or torch.equal(v, start[k]):
+            raise AssertionError(f"go1_flat_lstm: {k} non-finite or unmoved")
+    if runner.ppo_state.counter != 3:
+        raise AssertionError(f"counter {runner.ppo_state.counter}")
+    runner.close()
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    keys = {"it", "Train/mean_step_reward", "Train/mean_reward",
+            "Train/mean_episode_length", "Train/dones", "Loss/value_loss",
+            "Loss/surrogate_loss"}
+    if len(rows) != 2 or any(set(r) != keys for r in rows):
+        raise AssertionError(f"go1_flat_lstm metrics.jsonl: {rows}")
+    fps = LEGGED_STEPS * LEGGED_ENVS / (collect_s + update_s)
+    log(f"go1_flat_lstm x {LEGGED_ENVS} envs (kernel shape {shape}): "
+        f"RecurrentRunner.learn iterations {iteration_s[0]:.3f} s, "
+        f"{iteration_s[1]:.3f} s; by hand: collect {collect_s:.3f} s, "
+        f"update {update_s:.3f} s, {fps:.0f} env-steps/s; step rewards "
+        f"{step_rew}; learning rate {runner.ppo_state.learning_rate:.3g}")
+    return dict(task="go1_flat_lstm", num_envs=LEGGED_ENVS,
+                kernel_shape=shape, iteration_s=iteration_s,
+                collect_s=collect_s, update_s=update_s, fps=fps,
+                launches=launches), launches
+
+
+def recurrent_update_check(device):
+    """One recurrent update on the card against the CPU from the same
+    weights, trajectory (T = 8, N = 16), initial carry and permutation."""
+    from dwbc_tpu_torch.models.actor_critic_recurrent import (
+        ActorCriticRecurrent)
+    from dwbc_tpu_torch.rl import ppo
+    from dwbc_tpu_torch.rl.recurrent import RecurrentPPO, RecurrentTransition
+    from dwbc_tpu_torch.utils.task_registry import TASKS
+
+    T, N = 8, 16
+    cfg = TASKS["go1_flat_lstm"].ppo_cfg
+    torch.manual_seed(4)
+    cpu_model = ActorCriticRecurrent(num_obs=48, num_actions=12,
+                                     rnn_hidden_size=64,
+                                     actor_hidden_dims=(64,),
+                                     critic_hidden_dims=(64,))
+    rng = np.random.default_rng(4)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    h = lambda: f32(0.5 * rng.normal(size=(N, 64)))
+    h0 = ((h(), h()), (h(), h()))
+    obs = f32(rng.normal(size=(T, N, 48)))
+    dones = torch.as_tensor(rng.random((T, N)) < 0.15)
+    dones_prev = torch.cat([torch.zeros((1, N), dtype=torch.bool),
+                            dones[:-1]])
+    with torch.no_grad():
+        _, (mean, _) = cpu_model.unroll(h0, obs, dones_prev)
+        std = cpu_model.std.detach()
+        actions = mean + 0.3 * std * f32(rng.normal(size=(T, N, 12)))
+        logp = ppo.logp_heads(cfg, actions, mean, std)
+    traj = RecurrentTransition(
+        obs=obs, actions=actions, rewards=f32(rng.normal(size=(T, N, 1))),
+        dones=dones, dones_prev=dones_prev,
+        time_outs=dones & torch.as_tensor(rng.random((T, N)) < 0.5),
+        values=f32(rng.normal(size=(T, N, 1))), log_probs=logp,
+        mu=mean + 0.1 * f32(rng.normal(size=(T, N, 12))),
+        sigma=std.expand(T, N, 12).clone())
+    last = f32(rng.normal(size=(N, 1)))
+    perm = torch.as_tensor(rng.permutation(N))
+
+    results, rates = {}, {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", device)):
+        model = copy.deepcopy(cpu_model).to(dev)
+        state = ppo.PPOState(cfg, model)
+        alg = RecurrentPPO(None, model, cfg, num_steps=T)
+        alg.update(state, RecurrentTransition(*(x.to(dev) for x in traj)),
+                   tuple(tuple(x.to(dev) for x in c) for c in h0),
+                   last.to(dev), perm=perm.to(dev))
+        results[name] = {k: v.cpu() for k, v in model.state_dict().items()}
+        rates[name] = state.learning_rate
+    if rates["cpu"] != rates["card"]:
+        raise AssertionError(f"learning rates differ: {rates}")
+    start = cpu_model.state_dict()
+    err = 0.0
+    for k, want in results["cpu"].items():
+        if torch.equal(want, start[k]):
+            raise AssertionError(f"recurrent update check: {k} did not move")
+        torch.testing.assert_close(results["card"][k], want, rtol=1e-4,
+                                   atol=1e-5, msg=lambda m: f"{k}: {m}")
+        err = max(err, float((results["card"][k] - want).abs().max()))
+    log(f"recurrent update check: card vs CPU, T={T} N={N}, parameters "
+        f"max_abs_err={err:.3g}, learning rate {rates['card']:.3g}")
+    return err
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -692,6 +1097,23 @@ def main():
         launches += n
     osc_err, osc_ms = osc_check(device, profile)
 
+    legged = []
+    result, n = legged_phase(device, profile)
+    legged.append(result)
+    launches += n
+    legged_step_err = legged_step_check(device)
+    result, n = actuator_phase(device)
+    legged.append(result)
+    launches += n
+    recurrent, n = recurrent_phase(device)
+    launches += n
+    recurrent_err = recurrent_update_check(device)
+    for task in ("cassie", "a1", "anymal_b"):
+        _, _, _, result = legged_train(device, task, 1)
+        legged.append(result)
+        launches += result["launches"]
+
+    drop_checkpoints()
     main_row = rows[0]
     kernels = [dict(
         name="contact_law", route="cuda",
@@ -700,14 +1122,21 @@ def main():
         launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=None, share_of_bound=main_row["share_of_bound"])]
+        library_ms=None, share_of_bound=main_row["share_of_bound"],
+        shapes=[{k: r[k] for k in ("ng", "nb", "n", "sorted", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "share_of_bound", "max_abs_err")}
+                for r in rows])]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, kernel_rows=rows,
                        collects=collects, training=training,
                        update_check_max_abs_err=update_err,
                        variants=variants, osc_check_max_abs_err=osc_err,
-                       osc_target_call_ms=osc_ms),
+                       osc_target_call_ms=osc_ms, legged=legged,
+                       legged_step_check_max_abs_err=legged_step_err,
+                       recurrent=recurrent,
+                       recurrent_update_check_max_abs_err=recurrent_err),
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run uses one card, whatever else the host holds

@@ -127,6 +127,12 @@ def yaw_quat(q: torch.Tensor) -> torch.Tensor:
     return quat_from_euler_xyz(z, z, yaw)
 
 
+def quat_apply_yaw(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by only the yaw of q (reference legged_gym
+    utils/math.py:38-42)."""
+    return quat_rotate(yaw_quat(q), v)
+
+
 def orientation_error(desired: torch.Tensor, current: torch.Tensor) -> torch.Tensor:
     """Axis-angle-ish orientation error used by the OSC expert
     (reference widowGo1.py:1223)."""

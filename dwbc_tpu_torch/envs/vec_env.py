@@ -25,7 +25,15 @@ class VecEnv(Protocol):
       reward_names: list[str] -- active reward terms (episode stat keys)
 
     Dual-reward envs additionally expose `arm_reward_names` and
-    `metric_names`, and their StepOut carries `arm_rew`.
+    `metric_names`, and their StepOut carries `arm_rew` and `extras` (the
+    OSC supervision data, possibly empty).
+
+    A single-reward env (the legged-robot family) has no
+    `arm_reward_names`; `metric_names` is optional. Its step output has
+    no `arm_rew` and no `extras`; its episode_stats hold `rew_<name>` for
+    every reward name, `metric_<name>` for every metric name, `reward_sum`,
+    `len_sum` and `terrain_level` (the mean curriculum level of this
+    step, logged as a per-step mean).
 
     step() returns (new_state, out) where `out` has fields
     obs / rew / reset / time_outs / episode_stats / num_resets; envs whose

@@ -1,0 +1,132 @@
+"""Recurrent ActorCritic variant (LSTM/GRU memory before the MLP).
+
+Counterpart of dwbc_tpu/models/actor_critic_recurrent.py (the reference
+ActorCriticRecurrent, actor_critic_recurrent.py:40-116): a recurrent
+memory encodes observations before the actor and critic MLPs; the hidden
+state is reset where episodes end. The hidden state is an explicit carry,
+not module state; for BPTT use `unroll` over a (T, B, obs) trajectory
+with a done mask.
+
+The cells are written from `nn.Linear` in the layout of the flax cells the
+JAX model uses, so that interop.recurrent_from_flax is a plain copy:
+  * LSTM (flax OptimizedLSTMCell): gates i, f, g, o; the input side has no
+    bias, the hidden side has one; the carry is (c, h);
+  * GRU (flax GRUCell): r, z, n; the input side carries the bias of all
+    three, the hidden side has none for r and z and its own for n, inside
+    r * (W_hn h + b_hn); the carry is h.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from .actor_critic import _ACT, _mlp
+
+
+class LSTMCell(nn.Module):
+    def __init__(self, num_in: int, hidden: int):
+        super().__init__()
+        self.wi = nn.Linear(num_in, 4 * hidden, bias=False)
+        self.wh = nn.Linear(hidden, 4 * hidden)
+
+    def forward(self, carry, x):
+        c, h = carry
+        i, f, g, o = torch.chunk(self.wi(x) + self.wh(h), 4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return (c, h), h
+
+
+class GRUCell(nn.Module):
+    def __init__(self, num_in: int, hidden: int):
+        super().__init__()
+        self.wi = nn.Linear(num_in, 3 * hidden)
+        self.wh = nn.Linear(hidden, 2 * hidden, bias=False)
+        self.whn = nn.Linear(hidden, hidden)
+
+    def forward(self, h, x):
+        ir, iz, i_n = torch.chunk(self.wi(x), 3, dim=-1)
+        hr, hz = torch.chunk(self.wh(h), 2, dim=-1)
+        r = torch.sigmoid(ir + hr)
+        z = torch.sigmoid(iz + hz)
+        n = torch.tanh(i_n + r * self.whn(h))
+        h = (1.0 - z) * n + z * h
+        return h, h
+
+
+def _map_carry(fn, carry):
+    """fn over every tensor of a (nested tuple) carry."""
+    if torch.is_tensor(carry):
+        return fn(carry)
+    return tuple(_map_carry(fn, c) for c in carry)
+
+
+class ActorCriticRecurrent(nn.Module):
+    """obs -> RNN -> actor/critic MLP heads (single-head action space)."""
+
+    def __init__(self, num_obs: int = 48, num_actions: int = 12,
+                 rnn_hidden_size: int = 256, rnn_type: str = "lstm",
+                 actor_hidden_dims: Sequence[int] = (256, 256),
+                 critic_hidden_dims: Sequence[int] = (256, 256),
+                 activation: str = "elu", init_noise_std: float = 1.0):
+        super().__init__()
+        if rnn_type not in ("lstm", "gru"):
+            raise ValueError("rnn_type must be 'lstm' or 'gru'")
+        self.rnn_type = rnn_type
+        self.rnn_hidden_size = rnn_hidden_size
+        self.act = _ACT[activation]
+        cell = LSTMCell if rnn_type == "lstm" else GRUCell
+        self.memory_a = cell(num_obs, rnn_hidden_size)
+        self.memory_c = cell(num_obs, rnn_hidden_size)
+        self.actor_layers = _mlp(rnn_hidden_size,
+                                 tuple(actor_hidden_dims) + (num_actions,))
+        self.critic_layers = _mlp(rnn_hidden_size,
+                                  tuple(critic_hidden_dims) + (1,))
+        self.std = nn.Parameter(torch.full((num_actions,),
+                                           float(init_noise_std)))
+
+    def initial_state(self, batch: int):
+        """Zero carry on the parameters' device: ((c, h), (c, h)) for the
+        actor's and the critic's LSTM, (h, h) for the GRUs."""
+        z = torch.zeros((batch, self.rnn_hidden_size), device=self.std.device)
+        if self.rnn_type == "lstm":
+            return ((z, z), (z, z))
+        return (z, z)
+
+    def _head(self, layers, x):
+        for layer in layers[:-1]:
+            x = self.act(layer(x))
+        return layers[-1](x)
+
+    def step(self, carry, obs, dones=None):
+        """One timestep: (carry, obs (B, D)) -> (carry, actions_mean,
+        value). dones (B,) resets the hidden state first (reference
+        actor_critic_recurrent `reset`)."""
+        ca, cc = carry
+        if dones is not None:
+            keep = 1.0 - dones.to(torch.float32)[:, None]
+            ca = _map_carry(lambda h: h * keep, ca)
+            cc = _map_carry(lambda h: h * keep, cc)
+        ca, ya = self.memory_a(ca, obs)
+        cc, yc = self.memory_c(cc, obs)
+        return ((ca, cc), self._head(self.actor_layers, ya),
+                self._head(self.critic_layers, yc))
+
+    def forward(self, obs):
+        """A single step from the zero state: (mean, std, value)."""
+        _, mean, value = self.step(self.initial_state(obs.shape[0]), obs)
+        return mean, self.std, value
+
+    def unroll(self, carry, obs_seq, dones_seq):
+        """BPTT over (T, B, D) with per-step done resets — the masked-loop
+        equivalent of split_and_pad_trajectories (utils/utils.py:33-71).
+        Returns (carry, (means (T, B, A), values (T, B, 1)))."""
+        means, values = [], []
+        for obs, dones in zip(obs_seq, dones_seq):
+            carry, mean, value = self.step(carry, obs, dones)
+            means.append(mean)
+            values.append(value)
+        return carry, (torch.stack(means), torch.stack(values))

@@ -79,41 +79,46 @@ class Transition(NamedTuple):
 
 
 class PPOState:
-    """The model, its two optimizers, the (possibly KL-adapted) learning
+    """The model, its optimizers, the (possibly KL-adapted) learning
     rate and the count of update iterations completed.
 
     `opt` is Adam over every parameter; its learning rate is set from
     `learning_rate` at each minibatch step. `hist_opt` is a second Adam
     over the history encoder alone (the DAgger phase trains only the
-    adaptation module) at the fixed `cfg.learning_rate`. Every parameter
+    adaptation module) at the fixed `cfg.learning_rate`; a model without
+    a history encoder (the single-head family) has none, and `hist_opt`
+    is None. Every parameter
     always holds a gradient tensor (zeros where a loss does not reach it),
     so that Adam's step count advances for all of them together, as the
     single count of the JAX package's optimizer does."""
 
-    def __init__(self, cfg: PPOConfig, model: ac_lib.ActorCritic):
+    def __init__(self, cfg: PPOConfig, model: torch.nn.Module):
         self.model = model
         self.params = list(model.parameters())
-        self.hist_params = list(model.actor.history_encoder.parameters())
-        self.opt = torch.optim.Adam(self.params, lr=cfg.learning_rate,
-                                    betas=(0.9, 0.999), eps=1e-8)
-        self.hist_opt = torch.optim.Adam(self.hist_params,
-                                         lr=cfg.learning_rate,
-                                         betas=(0.9, 0.999), eps=1e-8)
+        encoder = getattr(getattr(model, "actor", None), "history_encoder",
+                          None)
+        self.hist_params = [] if encoder is None else list(
+            encoder.parameters())
+        adam = dict(lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        self.opt = torch.optim.Adam(self.params, **adam)
+        self.hist_opt = (torch.optim.Adam(self.hist_params, **adam)
+                         if self.hist_params else None)
         for p in self.params:
             p.grad = torch.zeros_like(p)
         self.learning_rate = float(np.float32(cfg.learning_rate))
         self.counter = 0
 
     def state_dict(self):
+        hist = None if self.hist_opt is None else self.hist_opt.state_dict()
         return dict(model=self.model.state_dict(), opt=self.opt.state_dict(),
-                    hist_opt=self.hist_opt.state_dict(),
-                    learning_rate=self.learning_rate, counter=self.counter)
+                    hist_opt=hist, learning_rate=self.learning_rate, counter=self.counter)
 
     def load_state_dict(self, d, load_optimizer: bool = True):
         self.model.load_state_dict(d["model"])
         if load_optimizer:
             self.opt.load_state_dict(d["opt"])
-            self.hist_opt.load_state_dict(d["hist_opt"])
+            if self.hist_opt is not None:
+                self.hist_opt.load_state_dict(d["hist_opt"])
         self.learning_rate = float(d["learning_rate"])
         self.counter = int(d["counter"])
 
@@ -207,6 +212,21 @@ def _adam_step(opt: torch.optim.Adam, params, max_norm: float, lr: float):
     for group in opt.param_groups:
         group["lr"] = lr
     opt.step()
+
+
+def adapt_learning_rate(cfg: PPOConfig, lr: float, kl: float) -> float:
+    """The adaptive-KL learning-rate rule (ppo.py:189-195) in float32, as
+    the JAX package computes it: its compiled update divides by 1.5 as a
+    multiplication by float32(1 / 1.5), one ulp off the true quotient for
+    a third of all rates, so the same product is taken here and the two
+    packages' rates stay bit-equal."""
+    f32 = np.float32
+    kl = f32(kl)
+    if kl > f32(cfg.desired_kl * 2.0):
+        lr = float(max(f32(1e-5), f32(lr) * f32(1.0 / 1.5)))
+    if f32(cfg.desired_kl / 2.0) > kl > 0.0:
+        lr = float(min(f32(1e-2), f32(lr) * f32(1.5)))
+    return lr
 
 
 def _permutation(B: int, gen, perm, device):
@@ -365,16 +385,10 @@ def update(cfg: PPOConfig, state: PPOState, traj: Transition,
             loss, aux = loss_fn(slice(i * mb_size, (i + 1) * mb_size))
             loss.backward()
             if adaptive_lr:
-                # adaptive-KL learning rate (ppo.py:189-195), changed
-                # before the step of the same minibatch; float32 like the
-                # JAX package. Reading the KL is one host round trip per
-                # minibatch, on this schedule only.
-                f32 = np.float32
-                kl = f32(aux["kl_mean"].item())
-                if kl > f32(cfg.desired_kl * 2.0):
-                    lr = float(max(f32(1e-5), f32(lr) / f32(1.5)))
-                if f32(cfg.desired_kl / 2.0) > kl > 0.0:
-                    lr = float(min(f32(1e-2), f32(lr) * f32(1.5)))
+                # changed before the step of the same minibatch. Reading
+                # the KL is one host round trip per minibatch, on this
+                # schedule only.
+                lr = adapt_learning_rate(cfg, lr, aux["kl_mean"].item())
             _adam_step(state.opt, state.params, cfg.max_grad_norm, lr)
             for k in keys:
                 totals[k] = totals[k] + aux[k].detach()
@@ -406,6 +420,9 @@ def update_dagger(cfg: PPOConfig, state: PPOState, traj: Transition,
     """DAgger phase: regress hist latent <- sg(priv latent), training only
     the history encoder (ppo.py:265-291) with `state.hist_opt` at the
     fixed cfg.learning_rate. Every other parameter comes out bit-equal."""
+    if state.hist_opt is None:
+        raise ValueError("update_dagger needs a model with a history "
+                         "encoder")
     model = state.model
     T, N = traj.dones.shape
     B = T * N
@@ -438,7 +455,7 @@ def update_dagger(cfg: PPOConfig, state: PPOState, traj: Transition,
 
 
 @torch.no_grad()
-def enforce_min_std(cfg: PPOConfig, model: ac_lib.ActorCritic):
+def enforce_min_std(cfg: PPOConfig, model: torch.nn.Module):
     """Clamp the std parameter in place at the per-joint floor; a floor of
     another shape means no per-joint floor for this task family."""
     floor = torch.tensor(cfg.min_policy_std, dtype=torch.float32,

@@ -40,9 +40,12 @@ def init_at_random_ep_len(env_state, max_episode_length: int,
 
 
 class Rollout:
-    """Env + model + ppo cfg; `collect` runs one rollout of num_steps."""
+    """Env + model + ppo cfg; `collect` runs one rollout of num_steps.
+    The model is an ActorCritic, an MlpActorCritic or any module with
+    their surface (act_mean / evaluate / priv_latent / hist_latent /
+    std)."""
 
-    def __init__(self, env, model: ac_lib.ActorCritic, cfg: ppo_lib.PPOConfig,
+    def __init__(self, env, model: torch.nn.Module, cfg: ppo_lib.PPOConfig,
                  num_steps: int = 40):
         if not isinstance(env, VecEnv):
             raise TypeError("env must satisfy the VecEnv protocol "
@@ -68,7 +71,9 @@ class Rollout:
         arm_names = getattr(env, "arm_reward_names", [])
         keys = (["rew_" + k for k in list(env.reward_names) + list(arm_names)]
                 + ["metric_" + k for k in getattr(env, "metric_names", [])])
-        if hasattr(env, "arm_reward_names"):
+        if not hasattr(env, "arm_reward_names"):
+            keys.append("terrain_level")
+        else:
             keys += ["term_roll", "term_pitch", "term_z", "term_timeout",
                      "term_bad", "step_base_height_rel", "step_z_margin_low",
                      "step_vel_x", "step_cmd_x"]
@@ -89,6 +94,7 @@ class Rollout:
         stats = {k: torch.zeros((), device=dev) for k in self.stat_keys()}
         nres = torch.zeros((), dtype=torch.int64, device=dev)
         steps = []
+        no_arm = torch.zeros((N, 6), device=dev)
         for _ in range(self.num_steps):
             mean = model.act_mean(obs, hist_encoding)
             actions = ac_lib.normal_sample(gen, mean, std)
@@ -103,8 +109,9 @@ class Rollout:
             else:
                 rewards = out.rew[..., None]
             # the OSC supervision data, zeros where the env sends none
-            arm = [out.extras[k] if k in out.extras
-                   else torch.zeros((N, 6), device=dev)
+            # (a single-reward env's step output has no extras at all)
+            extras = getattr(out, "extras", {})
+            arm = [extras.get(k, no_arm)
                    for k in ("target_arm_torques", "current_arm_dof_pos",
                              "current_arm_dof_vel")]
             steps.append((obs, actions, rewards, out.reset, out.time_outs,
@@ -195,9 +202,11 @@ class OnPolicyRunner:
                     num_hist=env.cfg.env.history_len,
                     adaptive_arm_gains=adaptive, init_std=init_std).to(dev)
         else:
-            raise NotImplementedError(
-                "num_heads == 1 needs MlpActorCritic (the legged-robot "
-                "family's policy), which is not ported yet")
+            from ..models.mlp_actor_critic import MlpActorCritic
+            with torch.random.fork_rng():
+                torch.manual_seed(seed)
+                self.model = MlpActorCritic(
+                    num_obs=env.num_obs, num_actions=env.num_actions).to(dev)
         self.ppo_state = ppo_lib.PPOState(cfg, self.model)
         self.rollout = Rollout(env, self.model, cfg, num_steps_per_env)
         # three random streams from the seed: the env's draws, the action
@@ -310,6 +319,9 @@ class OnPolicyRunner:
             elif k.startswith("step_"):
                 # per-step per-env mean over the whole rollout
                 d["Episode/" + k] = v / self.rollout.num_steps
+        if "terrain_level" in stats:  # per-step mean, not per-reset
+            d["Episode/terrain_level"] = (stats["terrain_level"]
+                                          / self.rollout.num_steps)
         line = (f"it {it:5d} | fps {fps:8d} | rew {d['Train/mean_reward']:.3f}"
                 f" | arm {d['Train/mean_arm_reward']:.3f}"
                 f" | len {d['Train/mean_episode_length']:.1f}"
@@ -330,7 +342,7 @@ class OnPolicyRunner:
     # -- checkpoint ---------------------------------------------------
 
     def save(self, path: str):
-        """One torch.save file of state dicts: the model, both optimizers,
+        """One torch.save file of state dicts: the model, the optimizers,
         the learning rate, the schedule counter and the iteration."""
         ckpt = self.ppo_state.state_dict()
         ckpt["it"] = self.it

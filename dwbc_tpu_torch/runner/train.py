@@ -5,8 +5,11 @@ Usage: python -m dwbc_tpu_torch.runner.train --task widowGo1 --num_envs 8192
 
 Counterpart of dwbc_tpu/runner/train.py with the same flags (mirror of
 reference scripts/train.py + the CLI whitelist in helpers.py:153-185:
-task, num_envs, seed, max_iterations, resume, run naming). Runs on the
-NVIDIA GPU and raises without one, unless --cpu is given."""
+task, num_envs, seed, max_iterations, resume, run naming). --task takes
+every name of utils.task_registry.TASKS: the widowGo1 family, the legged
+robots (go1, a1, anymal_c, anymal_b, cassie; rough and flat) and
+go1_flat_lstm, which trains the recurrent policy through RecurrentRunner.
+Runs on the NVIDIA GPU and raises without one, unless --cpu is given."""
 
 from __future__ import annotations
 

@@ -150,7 +150,10 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
     """Build step(q, qd, tau_fn, mass, com, inertia, friction, n_steps, ...)
     running `n_steps` physics substeps on `device`. tau_fn(q, qd) -> (N, nj)
     joint torques is re-evaluated each substep (the reference's
-    per-substep PD, widowGo1.py:1175-1191).
+    per-substep PD, widowGo1.py:1175-1191). A stateful torque law (the
+    LSTM actuator net, reference anymal.py:71-78) passes its state as
+    `tau_carry`: then tau_fn(carry, q, qd) -> (carry, tau) advances it once
+    per substep and step() returns (out, tau_carry_out).
 
     With `box_half_extents`, a free box body is co-simulated inside the
     same substep: robot spheres contact the box OBB two-way, the box's 8
@@ -290,14 +293,15 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
     # on smooth terrain, exact per-corner planes where cell-to-cell steps
     # exceed 0.15 m (stairs). Deltas >= 50 m are the arena-wall fencing
     # rows and are excluded.
-    h_np = hf.height.detach().cpu().numpy()
     cell_step = 0.0
-    if h_np.size > 1:
-        dh = np.concatenate([np.abs(np.diff(h_np, axis=0)).ravel(),
-                             np.abs(np.diff(h_np, axis=1)).ravel()])
-        dh = dh[dh < 50.0]
-        if dh.size:
-            cell_step = float(dh.max())
+    if with_box:
+        h_np = hf.height.detach().cpu().numpy()
+        if h_np.size > 1:
+            dh = np.concatenate([np.abs(np.diff(h_np, axis=0)).ravel(),
+                                 np.abs(np.diff(h_np, axis=1)).ravel()])
+            dh = dh[dh < 50.0]
+            if dh.size:
+                cell_step = float(dh.max())
     box_corner_exact = cell_step > 0.15
 
     def sample_box_terrain(box_q):
@@ -510,10 +514,13 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
         return q_new, qd_new, gF, cf_new, bx_new
 
     def step(q, qd, tau_fn, mass, com, inertia, friction, n_steps,
-             box_q=None, box_qd=None, box_mass=None, box_i_diag=None,
-             contact_carry=None):
-        """q (N, nq), qd (N, nv); tau_fn(q, qd) -> (N, nj); mass (N, nb),
-        com (N, nb, 3), inertia (N, nb, 3, 3), friction (N,).
+             tau_carry=None, box_q=None, box_qd=None, box_mass=None,
+             box_i_diag=None, contact_carry=None):
+        """q (N, nq), qd (N, nv); tau_fn(q, qd) -> (N, nj), or with
+        `tau_carry` tau_fn(carry, q, qd) -> (carry, (N, nj)); mass (N, nb),
+        com (N, nb, 3), inertia (N, nb, 3, 3), friction (N,). Returns the
+        FusedOut, followed by the torque law's final carry when
+        `tau_carry` was given and by (box_q, box_qd) with a box.
 
         contact_carry: warm-start dict from init_contact_carry / the
         previous FusedOut.contact_carry; None starts from zero forces."""
@@ -531,7 +538,10 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
         cf = {k: v.permute(2, 1, 0).contiguous()
               for k, v in contact_carry.items()}
         for _ in range(n_steps):
-            tau = tau_fn(q, qd)
+            if tau_carry is None:
+                tau = tau_fn(q, qd)
+            else:
+                tau_carry, tau = tau_fn(tau_carry, q, qd)
             q, qd, gF, cf, bx = substep(q, qd, tau, IA_body, mass, com, cache,
                                         cf, friction, bx, box_cache)
         gf_last = gF.permute(2, 1, 0)                          # (N, ng, 3)
@@ -541,9 +551,10 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
             torques=tau,
             contact_carry={k: v.permute(2, 1, 0).contiguous()
                            for k, v in cf.items()})
+        ret = (out,) if tau_carry is None else (out, tau_carry)
         if with_box:
-            return out, bx[0], bx[1]
-        return out
+            ret += (bx[0], bx[1])
+        return ret[0] if len(ret) == 1 else ret
 
     step.fk = fk
     return step

@@ -1,9 +1,12 @@
 """Terrain generation + heightfield queries on torch tensors.
 
-Counterpart of dwbc_tpu/terrain/terrain.py (the rollout's subset:
-`Heightfield` sampling, `flat_plane`, fractal Perlin). Generation runs
-once at startup in numpy / native C++; the heightfield then lives on the
-device as a float32 tensor with O(1) bilinear lookups.
+Counterpart of dwbc_tpu/terrain/terrain.py: `Heightfield` sampling,
+`flat_plane`, fractal Perlin and the curriculum grid (rows = difficulty,
+cols = type, seven subterrain kinds). Generation runs once at startup in
+numpy / native C++ (the numpy generators are the JAX package's line for
+line, so that one seed gives bit-equal heights); the heightfield then
+lives on the device as a float32 tensor with O(1) bilinear lookups. The
+trimesh export of the JAX module is not ported.
 
 The grid lookups clamp their indices exactly as the reference does
 (terrain.py:56-57, 101-102): JAX clamps out-of-range gathers silently,
@@ -14,7 +17,7 @@ what keeps every gather in range.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +33,17 @@ class Heightfield(NamedTuple):
     height: torch.Tensor        # (H, W) float32 meters; axis 0 = x, axis 1 = y
     cell: float
     origin: Tuple[float, float]  # world coords of grid index (0, 0)
+    # optional precomputed 3-tap min table: min3[i, j] = min(h[i, j],
+    # h[i+1, j], h[i, j+1]). sample_min3 is a pure function of the cell
+    # index, so the min folds into one gather instead of three, with
+    # bit-identical results.
+    min3: Optional[torch.Tensor] = None
+
+    def with_min3(self) -> "Heightfield":
+        h = self.height
+        h_r = torch.cat([h[1:], h[-1:]], 0)
+        h_c = torch.cat([h[:, 1:], h[:, -1:]], 1)
+        return self._replace(min3=torch.minimum(torch.minimum(h, h_r), h_c))
 
     def _corners(self, x, y):
         H, W = self.height.shape
@@ -61,6 +75,28 @@ class Heightfield(NamedTuple):
         dhdy = ((h01 + h11) - (h00 + h10)) / (2 * self.cell)
         inv = torch.rsqrt(dhdx * dhdx + dhdy * dhdy + 1.0)
         return h, (-dhdx * inv, -dhdy * inv, inv)
+
+    def sample_min3(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """The reference's conservative 3-tap min lookup used for measured
+        heights (legged_robot.py:820-829). The cell index is the grid
+        coordinate truncated toward zero, then clamped (`sample` floors
+        after its clamp)."""
+        H, W = self.height.shape
+        ix = torch.clamp(((x - self.origin[0]) / self.cell).long(), 0, H - 2)
+        iy = torch.clamp(((y - self.origin[1]) / self.cell).long(), 0, W - 2)
+        if self.min3 is not None:
+            return self.min3[ix, iy]
+        h = self.height
+        return torch.minimum(torch.minimum(h[ix, iy], h[ix + 1, iy]),
+                             h[ix, iy + 1])
+
+    def normal(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Surface normal from central differences of the heightfield."""
+        e = self.cell
+        dhdx = (self.sample(x + e, y) - self.sample(x - e, y)) / (2 * e)
+        dhdy = (self.sample(x, y + e) - self.sample(x, y - e)) / (2 * e)
+        n = torch.stack([-dhdx, -dhdy, torch.ones_like(dhdx)], dim=-1)
+        return n / torch.linalg.norm(n, dim=-1, keepdim=True)
 
 
 def heightfield_from_numpy(height: np.ndarray, cell: float, origin,
@@ -170,3 +206,237 @@ def perlin_terrain(cfg: PerlinTerrainCfg, device="cuda") -> Heightfield:
               -cfg.tot_rows * cfg.horizontal_scale / 2)
     return heightfield_from_numpy(perlin_heights(cfg), cfg.horizontal_scale,
                                   origin, dev)
+
+
+# ---------------------------------------------------------------------------
+# curriculum grid terrain (rows = difficulty, cols = type)
+
+
+@dataclasses.dataclass
+class GridTerrainCfg:
+    """Leaf values of LeggedRobotCfg.terrain (legged_robot_config.py:43-66)."""
+
+    horizontal_scale: float = 0.1
+    vertical_scale: float = 0.005
+    border_size: float = 25.0
+    terrain_length: float = 8.0
+    terrain_width: float = 8.0
+    num_rows: int = 10
+    num_cols: int = 20
+    terrain_proportions: Tuple[float, ...] = (0.1, 0.1, 0.35, 0.25, 0.2)
+    curriculum: bool = True
+    slope_threshold: float = 0.75
+    # 'selected' mode (reference terrain.py:124-129 + selected_terrain):
+    # every cell gets the named subterrain with these kwargs
+    selected: "str | None" = None   # pyramid_slope|rough|pyramid_stairs|
+    #                                 discrete_obstacles|stepping_stones|gap|pit
+    selected_kwargs: dict = dataclasses.field(default_factory=dict)
+    seed: int = 0
+
+
+class GridTerrain(NamedTuple):
+    hf: Heightfield
+    env_origins: np.ndarray  # (rows, cols, 3) world spawn points
+    length: float            # per-subterrain length [m]
+
+
+def _pyramid_slope(h, cell, vscale, slope, platform=3.0):
+    n = h.shape[0]
+    c = n // 2
+    x = np.abs(np.arange(n) - c)
+    d = np.maximum(x[:, None], x[None, :])  # Chebyshev distance from center
+    ramp = (c - d) * cell * slope
+    plat_cells = int(platform / cell / 2)
+    peak = (c - plat_cells) * cell * slope
+    return np.minimum(ramp, peak)
+
+
+def _rough(rng, h, cell, min_h=-0.05, max_h=0.05, step=0.005, down_scale=0.2):
+    n = h.shape[0]
+    coarse = max(int(n * cell / down_scale), 2)
+    vals = rng.choice(np.arange(min_h, max_h + step, step), size=(coarse, coarse))
+    # nearest-neighbor upsample
+    idx = np.minimum((np.arange(n) * coarse // n), coarse - 1)
+    return vals[idx][:, idx]
+
+
+def _pyramid_stairs(h, cell, step_w=0.31, step_h=0.1, platform=3.0):
+    n = h.shape[0]
+    c = n // 2
+    x = np.abs(np.arange(n) - c)
+    d = np.maximum(x[:, None], x[None, :])
+    step_cells = max(int(step_w / cell), 1)
+    plat_cells = int(platform / cell / 2)
+    n_steps = np.maximum((c - d - plat_cells), 0) // step_cells
+    return n_steps * step_h
+
+
+def _discrete_obstacles(rng, h, cell, height, min_size=1.0, max_size=2.0,
+                        num_rects=20, platform=3.0):
+    n = h.shape[0]
+    out = np.zeros_like(h)
+    for _ in range(num_rects):
+        w = int(rng.uniform(min_size, max_size) / cell)
+        l = int(rng.uniform(min_size, max_size) / cell)
+        x = rng.integers(0, max(n - w, 1))
+        y = rng.integers(0, max(n - l, 1))
+        out[x:x + w, y:y + l] = rng.choice([-height, -height / 2, height / 2, height])
+    c = n // 2
+    p = int(platform / cell / 2)
+    out[c - p:c + p, c - p:c + p] = 0
+    return out
+
+
+def _stepping_stones(rng, h, cell, stone_size, stone_dist, max_height=0.0,
+                     platform=4.0, depth=-2.0):
+    n = h.shape[0]
+    out = np.full_like(h, depth)
+    s = max(int(stone_size / cell), 1)
+    d = max(int(stone_dist / cell), 1)
+    y = 0
+    while y < n:
+        x = int(rng.integers(0, s))
+        out[:, y:y + s][0:x, :] = rng.uniform(-max_height, max_height)
+        while x < n:
+            x2 = min(x + s, n)
+            out[x:x2, y:y + s] = rng.uniform(-max_height, max_height)
+            x += s + d
+        y += s + d
+    c = n // 2
+    p = int(platform / cell / 2)
+    out[c - p:c + p, c - p:c + p] = 0
+    return out
+
+
+def _gap(h, cell, gap_size, platform=3.0):
+    n = h.shape[0]
+    c = n // 2
+    out = np.zeros_like(h)
+    g = int(gap_size / cell)
+    p = int(platform / cell / 2)
+    out[c - p - g:c + p + g, c - p - g:c + p + g] = -1000 * 0.005
+    out[c - p:c + p, c - p:c + p] = 0
+    return out
+
+
+def _pit(h, cell, depth, platform=4.0):
+    n = h.shape[0]
+    c = n // 2
+    out = np.full_like(h, 0.0)
+    p = int(platform / cell / 2)
+    out[c - p:c + p, c - p:c + p] = 0
+    out[:c - p, :] = -depth
+    out[c + p:, :] = -depth
+    out[:, :c - p] = -depth
+    out[:, c + p:] = -depth
+    return out
+
+
+def _make_subterrain(rng, n, cfg: GridTerrainCfg, choice: float, difficulty: float):
+    """Mirror of reference make_terrain difficulty scalings
+    (terrain.py:172-208)."""
+    cell = cfg.horizontal_scale
+    h = np.zeros((n, n), np.float64)
+    props = np.cumsum(cfg.terrain_proportions).tolist()
+    while len(props) < 7:
+        props.append(props[-1])
+    slope = difficulty * 0.4
+    step_height = 0.05 + 0.18 * difficulty
+    obstacle_h = 0.05 + difficulty * 0.2
+    stone_size = 1.5 * (1.05 - difficulty)
+    stone_dist = 0.05 if difficulty == 0 else 0.1
+    gap_size = 1.0 * difficulty
+    pit_depth = 1.0 * difficulty
+    if choice < props[0]:
+        if choice < props[0] / 2:
+            slope = -slope
+        h = _pyramid_slope(h, cell, cfg.vertical_scale, slope)
+    elif choice < props[1]:
+        h = _pyramid_slope(h, cell, cfg.vertical_scale, slope)
+        h = h + _rough(rng, h, cell)
+    elif choice < props[2]:
+        h = _pyramid_stairs(h, cell, step_h=-step_height)
+    elif choice < props[3]:
+        h = _pyramid_stairs(h, cell, step_h=step_height)
+    elif choice < props[4]:
+        h = _discrete_obstacles(rng, h, cell, obstacle_h)
+    elif choice < props[5]:
+        h = _stepping_stones(rng, h, cell, stone_size, stone_dist)
+    elif choice < props[6]:
+        h = _gap(h, cell, gap_size)
+    else:
+        h = _pit(h, cell, pit_depth)
+    return h
+
+
+def _selected_subterrain(rng, n, cfg: GridTerrainCfg):
+    """Reference selected_terrain: one named subterrain type for every
+    cell, parameterized by cfg.selected_kwargs."""
+    cell = cfg.horizontal_scale
+    h = np.zeros((n, n), np.float64)
+    kw = dict(cfg.selected_kwargs)
+    name = cfg.selected
+    if name == "pyramid_slope":
+        return _pyramid_slope(h, cell, cfg.vertical_scale, **kw)
+    if name == "rough":
+        return _rough(rng, h, cell, **kw)
+    if name == "pyramid_stairs":
+        return _pyramid_stairs(h, cell, **kw)
+    if name == "discrete_obstacles":
+        return _discrete_obstacles(rng, h, cell, **kw)
+    if name == "stepping_stones":
+        return _stepping_stones(rng, h, cell, **kw)
+    if name == "gap":
+        return _gap(h, cell, **kw)
+    if name == "pit":
+        return _pit(h, cell, **kw)
+    raise ValueError(f"unknown selected terrain {name!r}")
+
+
+def grid_heights(cfg: GridTerrainCfg):
+    """The (H, W) float32 height array of `grid_terrain` and its
+    (rows, cols, 3) float64 spawn points."""
+    rng = np.random.default_rng(cfg.seed)
+    n = int(cfg.terrain_width / cfg.horizontal_scale)
+    border = int(cfg.border_size / cfg.horizontal_scale)
+    H = cfg.num_rows * n + 2 * border
+    W = cfg.num_cols * n + 2 * border
+    field = np.zeros((H, W), np.float64)
+    origins = np.zeros((cfg.num_rows, cfg.num_cols, 3))
+    for i in range(cfg.num_rows):
+        for j in range(cfg.num_cols):
+            if cfg.selected:
+                sub = _selected_subterrain(rng, n, cfg)
+            elif cfg.curriculum:
+                difficulty = i / cfg.num_rows
+                choice = j / cfg.num_cols + 0.001
+                sub = _make_subterrain(rng, n, cfg, choice, difficulty)
+            else:
+                difficulty = rng.choice([0.5, 0.75, 0.9])
+                choice = rng.uniform(0, 1)
+                sub = _make_subterrain(rng, n, cfg, choice, difficulty)
+            x0 = border + i * n
+            y0 = border + j * n
+            field[x0:x0 + n, y0:y0 + n] = sub
+            # spawn at subterrain center, on top of local max around center
+            cx, cy = x0 + n // 2, y0 + n // 2
+            r = int(1.0 / cfg.horizontal_scale)
+            z = np.max(field[cx - r:cx + r, cy - r:cy + r])
+            origins[i, j] = [
+                (i + 0.5) * cfg.terrain_length,
+                (j + 0.5) * cfg.terrain_width,
+                z,
+            ]
+    # int16 quantization parity (reference keeps height_field_raw as int16
+    # samples of vertical_scale metres, terrain.py:133)
+    if cfg.vertical_scale > 0:
+        field = np.round(field / cfg.vertical_scale) * cfg.vertical_scale
+    return field.astype(np.float32), origins
+
+
+def grid_terrain(cfg: GridTerrainCfg, device="cuda") -> GridTerrain:
+    dev = resolve_device(device)
+    field, origins = grid_heights(cfg)
+    hf = heightfield_from_numpy(field, cfg.horizontal_scale,
+                                (-cfg.border_size, -cfg.border_size), dev)
+    return GridTerrain(hf=hf, env_origins=origins, length=cfg.terrain_length)

@@ -1,8 +1,8 @@
 """Task registry: name -> (env factory, ppo config, runner settings).
 
-Counterpart of dwbc_tpu/utils/task_registry.py; the port registers the
-widowGo1 family (rough, flat, adaptive). The legged-robot and recurrent
-tasks of the JAX package are not ported yet.
+Counterpart of dwbc_tpu/utils/task_registry.py, with the same 12 tasks:
+widowGo1 (flagship dual-head task, with its flat and adaptive variants)
+plus the generic locomotion family and its recurrent variant.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, NamedTuple
 
+from ..envs import legged_config as lc
 from ..rl import ppo as ppo_lib
 
 
@@ -19,6 +20,9 @@ class TaskSpec(NamedTuple):
     num_steps_per_env: int
     default_num_envs: int
     experiment_name: str
+    # the reference selects the recurrent variant by name through config
+    # (policy_class_name, on_policy_runner.py:63)
+    policy_class_name: str = "ActorCritic"
 
 
 def _widow_env(num_envs, seed, device, terrain=None, adaptive=False):
@@ -50,7 +54,22 @@ def _widow_env(num_envs, seed, device, terrain=None, adaptive=False):
     return WidowGo1Env(cfg, num_envs=num_envs, seed=seed, device=device)
 
 
+def _legged_env(cfg_fn):
+    def make(num_envs, seed, device):
+        from ..envs.legged_robot import LeggedRobotEnv
+        return LeggedRobotEnv(cfg_fn(), num_envs=num_envs, seed=seed,
+                              device=device)
+    return make
+
+
 _WIDOW_PPO = ppo_lib.PPOConfig()  # widowGo1_config.py:343-366 leaves
+
+_BASE_PPO = ppo_lib.PPOConfig(
+    # LeggedRobotCfgPPO.algorithm (legged_robot_config.py:214-227)
+    entropy_coef=0.01, learning_rate=5e-4, schedule="adaptive",
+    desired_kl=0.01, num_heads=1, use_dagger=False, use_roa=False,
+    min_policy_std=(0.0,) * 12, mixing_schedule=(0.0, 0.0, 1.0),
+    priv_reg_coef_schedule=(0.0, 0.0, 0.0, 1.0))
 
 _ADAPTIVE_PPO = dataclasses.replace(
     _WIDOW_PPO, torque_supervision=True, adaptive_arm_gains=True,
@@ -66,6 +85,23 @@ TASKS: Dict[str, TaskSpec] = {
     "widowGo1_adaptive": TaskSpec(
         lambda n, s, d: _widow_env(n, s, d, adaptive=True), _ADAPTIVE_PPO, 40,
         5000, "rough_widowGo1_adaptive"),
+    "go1": TaskSpec(_legged_env(lc.go1_rough), _BASE_PPO, 24, 4096, "rough_go1"),
+    "go1_flat": TaskSpec(_legged_env(lc.go1_flat), _BASE_PPO, 24, 4096,
+                         "flat_go1"),
+    "a1": TaskSpec(_legged_env(lc.a1_rough), _BASE_PPO, 24, 4096, "rough_a1"),
+    "a1_flat": TaskSpec(_legged_env(lc.a1_flat), _BASE_PPO, 24, 4096,
+                        "flat_a1"),
+    "anymal_c_rough": TaskSpec(_legged_env(lc.anymal_c_rough), _BASE_PPO, 24,
+                               4096, "rough_anymal_c"),
+    "anymal_c_flat": TaskSpec(_legged_env(lc.anymal_c_flat), _BASE_PPO, 24,
+                              4096, "flat_anymal_c"),
+    "anymal_b": TaskSpec(_legged_env(lc.anymal_b_rough), _BASE_PPO, 24, 4096,
+                         "rough_anymal_b"),
+    "cassie": TaskSpec(_legged_env(lc.cassie_rough), _BASE_PPO, 24, 4096,
+                       "rough_cassie"),
+    "go1_flat_lstm": TaskSpec(
+        _legged_env(lc.go1_flat), _BASE_PPO, 24, 4096, "flat_go1_lstm",
+        policy_class_name="ActorCriticRecurrent"),
 }
 
 
@@ -81,14 +117,20 @@ def make_runner(task: str, num_envs=None, seed: int = 1, log_dir=None,
     """(env, runner, spec). `env_setup(env)` sets env flags
     (spawn_relative, droop compensation, ...) before the runner's initial
     reset; `ppo_overrides` replaces fields of the task's PPOConfig."""
-    from ..rl.runner import OnPolicyRunner
     env, spec = make_env(task, num_envs, seed, device)
     if env_setup is not None:
         env_setup(env)
     if ppo_overrides:
         spec = spec._replace(
             ppo_cfg=dataclasses.replace(spec.ppo_cfg, **ppo_overrides))
-    runner = OnPolicyRunner(env, spec.ppo_cfg,
-                            num_steps_per_env=spec.num_steps_per_env,
-                            log_dir=log_dir, seed=seed)
+    if spec.policy_class_name == "ActorCriticRecurrent":
+        from ..rl.recurrent import RecurrentRunner
+        runner = RecurrentRunner(env, spec.ppo_cfg,
+                                 num_steps_per_env=spec.num_steps_per_env,
+                                 seed=seed, log_dir=log_dir)
+    else:
+        from ..rl.runner import OnPolicyRunner
+        runner = OnPolicyRunner(env, spec.ppo_cfg,
+                                num_steps_per_env=spec.num_steps_per_env,
+                                log_dir=log_dir, seed=seed)
     return env, runner, spec

@@ -99,6 +99,10 @@ def assert_law_close(out, ref):
     # the kernel's limits, and one env; geom->body maps in random order
     pytest.param(97, 128, 32, False, id="128x32x97-unsorted"),
     pytest.param(1, 84, 21, False, id="84x21x1-unsorted"),
+    # the legged robots' sphere counts on 13 bodies
+    pytest.param(64, 92, 13, True, id="go1-92x13"),
+    pytest.param(64, 22, 13, True, id="anymal_c-22x13"),
+    pytest.param(64, 5, 13, True, id="cassie-5x13"),
 ])
 def test_plain_law_matches_jax_law(n, ng, nb, sorted):
     s = random_scene(n, ng, nb, sorted=sorted)
@@ -121,6 +125,12 @@ def test_plain_law_matches_jax_law(n, ng, nb, sorted):
     pytest.param(1, 13, 5, True, id="13x5x1"),
     pytest.param(33, 128, 32, True, id="128x32x33"),
     pytest.param(8192, 84, 21, False, id="8192-unsorted"),
+    # the legged robots: go1, a1, anymal_b, anymal_c, cassie
+    pytest.param(4096, 92, 13, True, id="go1-92x13x4096"),
+    pytest.param(4096, 76, 13, True, id="a1-76x13x4096"),
+    pytest.param(4096, 28, 13, True, id="anymal_b-28x13x4096"),
+    pytest.param(4096, 22, 13, True, id="anymal_c-22x13x4096"),
+    pytest.param(4096, 5, 13, True, id="cassie-5x13x4096"),
 ])
 def test_cuda_kernel_matches_plain_law(n, ng, nb, sorted):
     if not torch.cuda.is_available():

@@ -7,6 +7,9 @@ import pytest
 import torch
 
 from dwbc_tpu_torch.core.model import free_body_model
+from dwbc_tpu_torch.envs import legged_config
+from dwbc_tpu_torch.envs.legged_robot import LeggedRobotEnv
+from dwbc_tpu_torch.models import actuator_net
 from dwbc_tpu_torch.sim import dynamics, engine, fused
 from dwbc_tpu_torch.terrain import terrain
 
@@ -23,6 +26,11 @@ BUILDERS = {
     # the device is resolved before any other argument is used
     "make_fused_substep": lambda: fused.make_fused_substep(
         BOX, engine.SimParams(), None, None, []),
+    "grid_terrain": lambda: terrain.grid_terrain(
+        terrain.GridTerrainCfg(num_rows=1, num_cols=1, border_size=1.0)),
+    "LeggedRobotEnv": lambda: LeggedRobotEnv(legged_config.go1_flat(), 4),
+    "actuator_net.load_params": lambda: actuator_net.load_params(),
+    "actuator_net.init_hidden": lambda: actuator_net.init_hidden(4),
 }
 
 

@@ -184,9 +184,14 @@ def test_make_runner_overrides_and_env_setup():
                                torch.full((4,), 0.40))
     # the episode clocks start desynchronised
     assert runner.env_state.episode_length.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="MlpActorCritic"):
-        from dwbc_tpu_torch.rl.runner import OnPolicyRunner
-        OnPolicyRunner(env, ppo.PPOConfig(num_heads=1))
+    # a single-head config gets the MLP policy (it raised before that
+    # policy was ported)
+    from dwbc_tpu_torch.models.mlp_actor_critic import MlpActorCritic
+    from dwbc_tpu_torch.rl.runner import OnPolicyRunner
+    legged, lspec = task_registry.make_env("go1_flat", 4, device="cpu")
+    assert lspec.ppo_cfg.num_heads == 1
+    assert isinstance(OnPolicyRunner(legged, lspec.ppo_cfg).model,
+                      MlpActorCritic)
 
 
 def test_adaptive_runner_trains_with_torque_supervision():
