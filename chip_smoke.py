@@ -74,7 +74,33 @@ Phases, each of which raises on failure (exit code != 0):
      atol 1e-5;
  13. the other robots: cassie, a1 and anymal_b, one iteration each at
      4096 envs (96 launches each), so that every timed kernel shape is
-     also launched from an env.
+     also launched from an env;
+ 14. export -> play: `python -m dwbc_tpu_torch.runner.export` of the go1
+     and the widowGo1 checkpoints of phases 9 and 6 on the card, both
+     programs (policy.pt2, hist_encoder.pt2) loaded and held against the
+     live model at batch 1 and 4096 (atol 1e-5), then `play --use_jit` of
+     5 envs x 50 steps from the program (200 launches each), the npz's
+     keys and shapes checked; export seconds, load seconds and play's
+     env-steps/s printed;
+ 15. two ranks on one card: two processes of this script (gloo, which
+     all-reduces CUDA tensors through the host: NCCL refuses two ranks on
+     one GPU) train go1 at 4096 envs split 2048 + 2048 for two iterations
+     (192 launches per rank); parameters and learning rate bitwise equal
+     across the ranks, metrics.jsonl and the checkpoint from rank 0 only;
+     then one-epoch one-minibatch updates on each rank's half of a
+     trajectory (the go1 MLP and the go1_flat_lstm recurrent policy)
+     against one process's update over the whole of it on the card (rtol
+     1e-3, atol 1e-5);
+ 16. NCCL at world size 1: `python -m torch.distributed.run --standalone
+     --nproc_per_node=1` of this script with --nccl-worker, which calls
+     the train CLI's main() (`--task go1 --num_envs 4096
+     --max_iterations 2`) with the kernel's count set to 0 just before
+     it and writes the count back (192 launches); its Perf/total_fps
+     beside the single-process go1 fps of phase 9;
+ 17. cold path: 600 substeps of sim/engine.make_batched_step (the
+     unfused step, plain torch) for widowGo1 standing under PD hold at
+     1024 envs (finite, base height 0.24-0.35 m), and 2 substeps of 4 of
+     those envs on the card against the CPU (atol 1e-4).
 Every env a phase builds must have its (spheres, bodies, envs) among
 KERNEL_SHAPES. The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -84,6 +110,7 @@ no result. Results are also written to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -113,13 +140,18 @@ LEGGED_STEPS = 24
 LAW_FLOPS_PER_ELEM = 140
 # (ng, nb, N, geom->body map sorted); the first two are the shapes the
 # driven paths give the kernel
+PLAY_ENVS = 5
+PLAY_STEPS = 50
 KERNEL_SHAPES = ((84, 21, NUM_ENVS, True), (84, 21, VARIANT_ENVS, True),
                  (84, 21, NUM_ENVS + 77, True),
                  (13, 5, 1, True), (128, 32, 33, True),
                  (84, 21, NUM_ENVS, False),
                  (92, 13, LEGGED_ENVS, True), (76, 13, LEGGED_ENVS, True),
                  (28, 13, LEGGED_ENVS, True), (22, 13, LEGGED_ENVS, True),
-                 (5, 13, LEGGED_ENVS, True))
+                 (5, 13, LEGGED_ENVS, True),
+                 # play's widths, and one rank's half of go1's 4096 envs
+                 (92, 13, PLAY_ENVS, True), (84, 21, PLAY_ENVS, True),
+                 (92, 13, LEGGED_ENVS // 2, True))
 N_SETS = 3            # 3 x 41 MB of inputs at 84 x 8192 > the 50 MB L2
 TIMED_LAUNCHES = 60
 PLAIN_LAUNCHES = 12   # ~100 elementwise kernels each
@@ -417,15 +449,17 @@ def fresh_dir(name):
 
 
 def drop_checkpoints():
-    """Remove the smoke runs' model_N files (tens of MB together) once
-    every phase has read what it needs: chiprun_out/ keeps the metrics."""
+    """Remove the smoke runs' model_N files and exported programs (tens of
+    MB together) once every phase has read what it needs: chiprun_out/
+    keeps the metrics."""
     for name in os.listdir(OUT_DIR):
-        log_dir = os.path.join(OUT_DIR, name)
-        if "_smoke" not in name or not os.path.isdir(log_dir):
+        if "_smoke" not in name or not os.path.isdir(os.path.join(OUT_DIR,
+                                                                   name)):
             continue
-        for f in os.listdir(log_dir):
-            if f.startswith("model_"):
-                os.remove(os.path.join(log_dir, f))
+        for dirpath, _, files in os.walk(os.path.join(OUT_DIR, name)):
+            for f in files:
+                if f.startswith("model_") or f.endswith((".pt", ".pt2")):
+                    os.remove(os.path.join(dirpath, f))
 
 
 def read_metrics(log_dir, lines):
@@ -695,9 +729,10 @@ def osc_check(device, profile):
     return osc_err, call_ms
 
 
-def check_kernel_shape(env):
-    """Every shape an env gives the kernel has a kernel-vs-plain row."""
-    shape = (len(env.model.geom_body), env.model.nb, env.num_envs)
+def check_kernel_shape(env, num_envs=None):
+    """Every shape an env gives the kernel has a kernel-vs-plain row (an
+    env of `env`'s robot with `num_envs` envs, if given)."""
+    shape = (len(env.model.geom_body), env.model.nb, num_envs or env.num_envs)
     if shape not in {s[:3] for s in KERNEL_SHAPES}:
         raise AssertionError(f"no kernel check at (ng, nb, N) = {shape}")
     return shape
@@ -1057,7 +1092,369 @@ def recurrent_update_check(device):
     return err
 
 
+def deploy_phase(device, task, ckpt):
+    """Export `task`'s checkpoint on the card, hold both programs against
+    the live model, and play the policy program: (results, launches)."""
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    from dwbc_tpu_torch.runner import export, play
+    from dwbc_tpu_torch.utils import task_registry
+
+    out_dir = fresh_dir(f"export_smoke_{task}")
+    t0 = time.time()
+    export.main(["--task", task, "--checkpoint", ckpt, "--out_dir", out_dir])
+    torch.cuda.synchronize()
+    export_s = time.time() - t0
+    env, runner, _ = task_registry.make_runner(task, num_envs=1, device=device)
+    runner.load(ckpt, load_optimizer=False)
+    t0 = time.time()
+    programs = {name: export.load_artifact(out_dir, name, device)
+                for name in export.PROGRAMS}
+    load_s = time.time() - t0
+    rng = np.random.default_rng(7)
+    err = 0.0
+    for batch in (1, LEGGED_ENVS):
+        obs = torch.as_tensor(rng.normal(size=(batch, env.num_obs)),
+                              dtype=torch.float32, device=device)
+        with torch.no_grad():
+            for name, live in (("policy", runner.model.act_mean(obs, True)),
+                               ("hist_encoder",
+                                runner.model.hist_latent(obs))):
+                got = programs[name](obs)
+                torch.testing.assert_close(
+                    got, live, rtol=0, atol=1e-5,
+                    msg=lambda m: f"{task} {name} at batch {batch}: {m}")
+                err = max(err, float((got - live).abs().max()))
+
+    check_kernel_shape(env, PLAY_ENVS)
+    npz = os.path.join(out_dir, "play_traj.npz")
+    contact_law.launches = 0
+    summary = play.play(task, checkpoint=ckpt, num_envs=PLAY_ENVS,
+                        steps=PLAY_STEPS, use_jit=out_dir, out=npz,
+                        device=device, plot=False)
+    launches = contact_law.launches
+    if launches != PLAY_STEPS * DECIMATION:
+        raise AssertionError(f"{task} play launched the contact kernel "
+                             f"{launches} times")
+    data = np.load(npz)
+    widow = task.startswith("widowGo1")
+    want = {"q": (PLAY_STEPS, PLAY_ENVS, env.model.nq),
+            "foot_forces": (PLAY_STEPS, PLAY_ENVS, 4, 3),
+            "rew": (PLAY_STEPS, PLAY_ENVS), "dt": (),
+            "ee_goal_cart": (PLAY_STEPS, PLAY_ENVS, 3) if widow else (0,),
+            "ee_pos": (PLAY_STEPS, PLAY_ENVS, 3) if widow else (0,)}
+    for k, shape in want.items():
+        if data[k].shape != shape:
+            raise AssertionError(f"{task} play npz {k}: {data[k].shape}")
+    if data["commands"].shape[:2] != (PLAY_STEPS, PLAY_ENVS):
+        raise AssertionError(f"{task} play npz commands shape")
+    if not all(np.isfinite(data[k]).all() for k in data.files):
+        raise AssertionError(f"{task} play npz: non-finite values")
+    log(f"deploy {task}: export {export_s:.2f} s (programs "
+        f"{sorted(os.listdir(out_dir))}), load {load_s:.2f} s, programs vs "
+        f"live model at batch 1 and {LEGGED_ENVS} max_abs_err={err:.3g}; "
+        f"play --use_jit {PLAY_ENVS} envs x {PLAY_STEPS} steps "
+        f"{summary['env_steps_per_s']:.0f} env-steps/s, {launches} launches, "
+        f"first-batch check {summary['use_jit_max_abs_err']:.3g}")
+    return dict(task=task, export_s=export_s, load_s=load_s,
+                max_abs_err=err, play_env_steps_per_s=summary[
+                    "env_steps_per_s"], launches=launches), launches
+
+
+def update_invariant(device, envs):
+    """One-epoch one-minibatch updates of the go1 MLP and of the
+    go1_flat_lstm recurrent policy on rows `envs` of one trajectory (T =
+    24, 64 envs, made from a seed, so every process makes the same): the
+    flattened parameters after each. Inside a process group the updates
+    average over the ranks."""
+    from dwbc_tpu_torch.models.actor_critic_recurrent import (
+        ActorCriticRecurrent)
+    from dwbc_tpu_torch.models.mlp_actor_critic import MlpActorCritic
+    from dwbc_tpu_torch.rl import ppo
+    from dwbc_tpu_torch.rl.recurrent import RecurrentPPO, RecurrentTransition
+    from dwbc_tpu_torch.utils.task_registry import TASKS
+
+    T, N = LEGGED_STEPS, 64
+    cfg = dataclasses.replace(TASKS["go1"].ppo_cfg, num_learning_epochs=1,
+                              num_mini_batches=1)
+    rng = np.random.default_rng(11)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    out = []
+    for recurrent in (False, True):
+        torch.manual_seed(12)
+        if recurrent:
+            model = ActorCriticRecurrent(num_obs=48, num_actions=12,
+                                         rnn_hidden_size=64,
+                                         actor_hidden_dims=(64,),
+                                         critic_hidden_dims=(64,))
+            num_obs = 48
+        else:
+            model, num_obs = MlpActorCritic(num_obs=235, num_actions=12), 235
+        obs = f32(rng.normal(size=(T, N, num_obs)))
+        h0 = tuple(tuple(f32(0.5 * rng.normal(size=(N, 64)))
+                         for _ in range(2)) for _ in range(2))
+        dones = torch.as_tensor(rng.random((T, N)) < 0.1)
+        dones_prev = torch.cat([torch.zeros((1, N), dtype=torch.bool),
+                                dones[:-1]])
+        with torch.no_grad():
+            mean = (model.unroll(h0, obs, dones_prev)[1][0] if recurrent
+                    else model.act_mean(obs))
+            std = model.std.detach()
+            actions = mean + 0.3 * std * f32(rng.normal(size=(T, N, 12)))
+            logp = ppo.logp_heads(cfg, actions, mean, std)
+        cols = dict(obs=obs, actions=actions,
+                    rewards=f32(rng.normal(size=(T, N, 1))), dones=dones,
+                    time_outs=dones & torch.as_tensor(rng.random((T, N)) < 0.5),
+                    values=f32(rng.normal(size=(T, N, 1))), log_probs=logp,
+                    mu=mean + 0.1 * f32(rng.normal(size=(T, N, 12))),
+                    sigma=std.expand(T, N, 12).clone())
+        last = f32(rng.normal(size=(N, 1)))[envs].to(device)
+        model = model.to(device)
+        state = ppo.PPOState(cfg, model)
+        pick = lambda x: x[:, envs].to(device)
+        n = last.shape[0]
+        if recurrent:
+            cols["dones_prev"] = dones_prev
+            tr = RecurrentTransition(**{k: pick(v) for k, v in cols.items()})
+            h = tuple(tuple(x[envs].to(device) for x in c) for c in h0)
+            RecurrentPPO(None, model, cfg, num_steps=T).update(
+                state, tr, h, last, perm=torch.arange(n, device=device))
+        else:
+            z6 = torch.zeros((T, N, 6))
+            tr = ppo.Transition(**{k: pick(v) for k, v in dict(
+                cols, target_arm_torques=z6, current_arm_dof_pos=z6,
+                current_arm_dof_vel=z6).items()})
+            ret, adv = ppo.compute_gae(cfg, tr, last)
+            ppo.update(cfg, state, tr, ret, adv,
+                       perm=torch.arange(T * n, device=device))
+        out.append(torch.cat([p.detach().reshape(-1)
+                              for p in model.parameters()]).cpu().numpy())
+    return out
+
+
+def two_rank_worker(rank, store, out_dir, device, num_envs):
+    """One of the two ranks of phase 15 (this script run with
+    --two-rank-worker): go1 on its half of `num_envs` envs, then its half
+    of the update invariant. Writes rank<r>.npz into out_dir."""
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    from dwbc_tpu_torch.parallel import distributed as dist
+    from dwbc_tpu_torch.utils import task_registry
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    device = dist.initialize(backend="gloo", device=device,
+                             init_method="file://" + store)
+    contact_law.launches = 0
+    env, runner, _ = task_registry.make_runner(
+        "go1", num_envs=num_envs, seed=1,
+        log_dir=os.path.join(out_dir, "run"), device=device)
+    if env.num_envs != num_envs // 2 or dist.world_size() != 2:
+        raise AssertionError(f"rank {rank}: {env.num_envs} envs")
+    if device.type == "cuda":
+        check_kernel_shape(env)
+    runner.learn(2, log_every=1)
+    runner.close()
+    launches = contact_law.launches
+    params = torch.cat([p.detach().reshape(-1)
+                        for p in runner.model.parameters()]).cpu().numpy()
+    half = slice(rank * 32, rank * 32 + 32)
+    ff, rnn = update_invariant(device, half)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), params=params,
+             lr=np.float64(runner.ppo_state.learning_rate),
+             vx=runner.env_state.command_lin_vel_x.cpu().numpy(),
+             launches=launches, ff=ff, rnn=rnn)
+    dist.shutdown()
+
+
+def two_rank_phase(device, num_envs=LEGGED_ENVS):
+    """Phase 15: two processes of this script on the one card."""
+    out_dir = fresh_dir("two_rank_smoke")
+    os.makedirs(out_dir)
+    store = os.path.join(out_dir, "store")
+    env = dict(os.environ)
+    env.pop("WORLD_SIZE", None)
+    t0 = time.time()
+    where = f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--two-rank-worker", str(r), store, out_dir,
+                               where, str(num_envs)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.time() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n"
+                                 f"{out[-6000:]}")
+    ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(2)]
+    if not (np.array_equal(ranks[0]["params"], ranks[1]["params"])
+            and ranks[0]["lr"] == ranks[1]["lr"]
+            and np.array_equal(ranks[0]["vx"], ranks[1]["vx"])):
+        raise AssertionError("the two ranks' parameters, learning rate or "
+                             "command range differ after training")
+    run = os.path.join(out_dir, "run")
+    models = sorted(f for f in os.listdir(run) if f.startswith("model_"))
+    if models != ["model_2"]:
+        raise AssertionError(f"checkpoints {models}")
+    rows = read_metrics(run, 2)
+    launches = [int(r["launches"]) for r in ranks]
+    if device.type == "cuda" and launches != [2 * LEGGED_STEPS * DECIMATION] * 2:
+        raise AssertionError(f"ranks launched the kernel {launches} times")
+    single = update_invariant(device, slice(0, 64))
+    err = 0.0
+    for i, name in enumerate(("ff", "rnn")):
+        for r in ranks:
+            np.testing.assert_allclose(r[name], single[i], rtol=1e-3,
+                                       atol=1e-5, err_msg=name)
+            err = max(err, float(np.abs(r[name] - single[i]).max()))
+    for r in rows:
+        log(f"two ranks x {num_envs // 2} envs (gloo, one card) go1 it "
+            f"{r['it']}: collect {r['Perf/collection time']:.3f} s, learn "
+            f"{r['Perf/learning_time']:.4f} s, Perf/total_fps "
+            f"{r['Perf/total_fps']} (the job's {num_envs} envs)")
+    log(f"two ranks: parameters bitwise equal, checkpoint and metrics from "
+        f"rank 0 only, {launches} launches, {wall:.1f} s in all; sharded "
+        f"one-minibatch update vs one process (MLP, LSTM) max_abs_err="
+        f"{err:.3g}")
+    return dict(fps=[r["Perf/total_fps"] for r in rows],
+                collect_s=[r["Perf/collection time"] for r in rows],
+                learn_s=[r["Perf/learning_time"] for r in rows],
+                wall_s=wall, update_max_abs_err=err,
+                launches=sum(launches)), sum(launches)
+
+
+def nccl_worker(out_path, argv):
+    """Phase 16's process under torchrun (this script run with
+    --nccl-worker): the train CLI's main(argv), with the kernel's launch
+    count set to 0 just before it; writes the count."""
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    from dwbc_tpu_torch.runner import train
+
+    contact_law.launches = 0
+    train.main(argv)
+    with open(out_path, "w") as f:
+        json.dump(dict(launches=contact_law.launches), f)
+
+
+def nccl_phase(single_fps):
+    """Phase 16: the train CLI under torchrun, one process, NCCL:
+    (results, kernel launches)."""
+    log_root = fresh_dir("nccl_smoke")
+    os.makedirs(log_root)
+    out = os.path.join(log_root, "worker.json")
+    t0 = time.time()
+    # --standalone: the rendezvous takes a free local port
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", os.path.abspath(__file__), "--nccl-worker",
+         out, "--task", "go1", "--num_envs", str(LEGGED_ENVS),
+         "--max_iterations", "2", "--log_every", "1", "--log_root", log_root,
+         "--exptid", "nccl"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"torchrun exited {res.returncode}:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
+    run = os.path.join(log_root, "rough_go1", "nccl")
+    rows = read_metrics(run, 2)
+    if "ranks=1 backend=nccl" not in res.stdout:
+        raise AssertionError(f"not an NCCL group of one: "
+                             f"{res.stdout[-2000:]}")
+    with open(out) as f:
+        launches = json.load(f)["launches"]
+    if launches != 2 * LEGGED_STEPS * DECIMATION:
+        raise AssertionError(f"the NCCL run launched the contact kernel "
+                             f"{launches} times, expected "
+                             f"{2 * LEGGED_STEPS * DECIMATION}")
+    fps = [r["Perf/total_fps"] for r in rows]
+    log(f"NCCL, world size 1 (torchrun --standalone --nproc_per_node=1, "
+        f"train CLI): go1 x {LEGGED_ENVS} Perf/total_fps {fps} vs "
+        f"single-process {single_fps}; {launches} launches; {wall:.1f} s "
+        f"with the process start")
+    return dict(fps=fps, single_process_fps=single_fps, wall_s=wall,
+                collect_s=[r["Perf/collection time"] for r in rows],
+                learn_s=[r["Perf/learning_time"] for r in rows],
+                launches=launches), launches
+
+
+def cold_phase(device, n=1024):
+    """Phase 17: the unfused batched step of sim/engine.py at n envs."""
+    from dwbc_tpu_torch.core import urdf
+    from dwbc_tpu_torch.sim import dynamics, engine
+    from dwbc_tpu_torch.terrain import terrain
+
+    m = urdf.load_urdf(urdf.WIDOW_GO1_URDF, dof_order=urdf.WIDOW_GO1_DOF_ORDER,
+                       armature=0.01)
+    pose = torch.tensor([-0.1, 0.8, -1.5, 0.1, 0.8, -1.5, -0.1, 0.8, -1.5,
+                         0.1, 0.8, -1.5] + [0.0] * 6 + [0.024, -0.024])
+    q0 = torch.zeros(m.nq)
+    q0[2], q0[6] = 0.42, 1.0
+    q0[7:] = pose
+    kp = torch.tensor([50.0] * 12 + [5.0] * 6 + [0.0] * 2)
+    kd = torch.tensor([1.0] * 12 + [0.5] * 6 + [0.0] * 2)
+
+    def run(dev, state, steps):
+        hf = terrain.flat_plane(10.0, 0.5, device=dev)
+        step = engine.make_batched_step(m, engine.SimParams(), hf, q0)
+        inert = dynamics.default_inertial(m, dev)
+        n = state.q.shape[0]
+        state = engine.BodyState(q=state.q.to(dev), qd=state.qd.to(dev))
+        p, a, b = pose.to(dev), kp.to(dev), kd.to(dev)
+        friction = torch.ones(n, device=dev)
+        for _ in range(steps):
+            tau = a * (p - state.q[:, 7:]) - b * state.qd[:, 6:]
+            state, con = step(state, tau, inert, friction)
+        return state, con
+
+    start = engine.BodyState(q=q0.repeat(n, 1), qd=torch.zeros((n, m.nv)))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, _ = run(device, start, 600)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    z = state.q[:, 2]
+    if not bool(torch.isfinite(state.q).all()) or not bool(
+            ((z > 0.24) & (z < 0.35)).all()):
+        raise AssertionError(f"cold path: widowGo1 does not stand, base "
+                             f"height {float(z.min()):.3f}-"
+                             f"{float(z.max()):.3f} m")
+    rng = np.random.default_rng(13)
+    few = engine.BodyState(
+        q=state.q[:4].cpu(),
+        qd=state.qd[:4].cpu() + torch.as_tensor(
+            0.05 * rng.normal(size=(4, m.nv)), dtype=torch.float32))
+    (card, con_g), (cpu, con_c) = run(device, few, 2), run("cpu", few, 2)
+    err = 0.0
+    for name, a, b in (("q", card.q, cpu.q), ("qd", card.qd, cpu.qd)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4,
+                                   msg=lambda s: f"cold path {name}: {s}")
+        err = max(err, float((a.cpu() - b).abs().max()))
+    if not bool((con_c.penetration < 0).any()):
+        raise AssertionError("cold path check: no sphere in contact")
+    log(f"cold path: make_batched_step widowGo1 x {n} envs, 600 substeps in "
+        f"{secs:.2f} s ({secs / 600 * 1e3:.1f} ms per substep), base height "
+        f"{float(z.min()):.4f}-{float(z.max()):.4f} m; card vs CPU, 4 envs x "
+        f"2 substeps, max_abs_err={err:.3g}")
+    return dict(num_envs=n, substeps=600, seconds=secs,
+                base_height=[float(z.min()), float(z.max())],
+                card_vs_cpu_max_abs_err=err)
+
+
 def main():
+    if sys.argv[1:2] == ["--two-rank-worker"]:
+        sys.path.insert(0, ROOT)
+        two_rank_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                        sys.argv[5], int(sys.argv[6]))
+        return
+    if sys.argv[1:2] == ["--nccl-worker"]:
+        sys.path.insert(0, ROOT)
+        nccl_worker(sys.argv[2], sys.argv[3:])
+        return
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1113,6 +1510,21 @@ def main():
         legged.append(result)
         launches += result["launches"]
 
+    t0 = time.time()
+    deploy = []
+    for task, run in (("go1", "go1_smoke"), ("widowGo1", "train_smoke")):
+        result, n = deploy_phase(device, task,
+                                 os.path.join(OUT_DIR, run, "model_3"))
+        deploy.append(result)
+        launches += n
+    two_rank, n = two_rank_phase(device)
+    launches += n
+    nccl, n = nccl_phase(legged[0]["fps"])
+    launches += n
+    cold = cold_phase(device)
+    log(f"new phases (export -> play, two ranks, NCCL, cold path): "
+        f"{time.time() - t0:.1f} s")
+
     drop_checkpoints()
     main_row = rows[0]
     kernels = [dict(
@@ -1136,7 +1548,9 @@ def main():
                        osc_target_call_ms=osc_ms, legged=legged,
                        legged_step_check_max_abs_err=legged_step_err,
                        recurrent=recurrent,
-                       recurrent_update_check_max_abs_err=recurrent_err),
+                       recurrent_update_check_max_abs_err=recurrent_err,
+                       deploy=deploy, two_rank=two_rank, nccl=nccl,
+                       cold_path=cold),
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run uses one card, whatever else the host holds

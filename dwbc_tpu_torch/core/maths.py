@@ -1,7 +1,6 @@
 """Quaternion / rotation / spherical-coordinate math on torch tensors.
 
-Counterpart of dwbc_tpu/core/maths.py (the subset the rollout and the
-OSC expert need).
+Counterpart of dwbc_tpu/core/maths.py.
 Conventions are the reference's:
   * quaternions are (x, y, z, w);
   * euler angles are extrinsic XYZ (roll, pitch, yaw);
@@ -17,6 +16,8 @@ import math
 
 import torch
 
+from ..utils.device import resolve_device
+
 
 def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-9) -> torch.Tensor:
     return v / (torch.linalg.norm(v, dim=dim, keepdim=True) + eps)
@@ -29,6 +30,14 @@ def wrap_to_pi(x: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # quaternion algebra (xyzw)
+
+
+def quat_identity(shape=(), device="cuda") -> torch.Tensor:
+    """Identity quaternions (*shape, 4) on `device` (`cuda` unless the
+    caller asks for the CPU)."""
+    q = torch.zeros(tuple(shape) + (4,), device=resolve_device(device))
+    q[..., 3] = 1.0
+    return q
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -133,6 +142,14 @@ def quat_apply_yaw(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return quat_rotate(yaw_quat(q), v)
 
 
+def quat_integrate(q: torch.Tensor, omega_world: torch.Tensor,
+                   dt) -> torch.Tensor:
+    """Integrate orientation with world-frame angular velocity."""
+    dq = quat_mul(torch.cat([omega_world,
+                             torch.zeros_like(omega_world[..., :1])], -1), q)
+    return normalize(q + 0.5 * dt * dq)
+
+
 def orientation_error(desired: torch.Tensor, current: torch.Tensor) -> torch.Tensor:
     """Axis-angle-ish orientation error used by the OSC expert
     (reference widowGo1.py:1223)."""
@@ -171,6 +188,15 @@ def uniform(gen: torch.Generator, shape, lo, hi, device) -> torch.Tensor:
 def rand_sign(gen: torch.Generator, shape, device) -> torch.Tensor:
     return torch.where(torch.rand(shape, generator=gen, device=device) < 0.5,
                        1.0, -1.0)
+
+
+def rand_sqrt_uniform(gen: torch.Generator, shape, lo, hi,
+                      device) -> torch.Tensor:
+    """sqrt-shaped distribution in [lo, hi]
+    (reference legged_gym utils/math.py:51-56)."""
+    r = 2.0 * torch.rand(shape, generator=gen, device=device) - 1.0
+    r = torch.where(r < 0, -torch.sqrt(-r), torch.sqrt(r))
+    return (r + 1.0) / 2.0 * (hi - lo) + lo
 
 
 # ---------------------------------------------------------------------------

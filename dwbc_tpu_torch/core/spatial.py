@@ -26,6 +26,11 @@ def _blocks(tl, tr, bl, br):
 # spatial transforms for the pose (R, p) of frame B expressed in frame A
 
 
+def x_motion(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Motion transform B->A for pose (R, p) of B in A."""
+    return _blocks(R, torch.zeros_like(R), skew(p) @ R, R)
+
+
 def x_force(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Force transform B->A: f_A = x_force(R, p) @ f_B."""
     return _blocks(R, skew(p) @ R, torch.zeros_like(R), R)
@@ -35,6 +40,12 @@ def x_motion_inv(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Motion transform A->B for pose (R, p) of B in A."""
     Rt = R.transpose(-1, -2)
     return _blocks(Rt, torch.zeros_like(R), -Rt @ skew(p), Rt)
+
+
+def x_force_inv(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Force transform A->B for pose (R, p) of B in A."""
+    Rt = R.transpose(-1, -2)
+    return _blocks(Rt, -Rt @ skew(p), torch.zeros_like(R), Rt)
 
 
 def cross_motion(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

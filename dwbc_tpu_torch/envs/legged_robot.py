@@ -17,6 +17,13 @@ on the device: the step counter, the curriculum-widened command range and
 the push / curriculum ticks are 0-dim tensors selected with torch.where,
 so a step never waits for the host. Python branches are taken only on
 what the config fixes.
+
+An env stepped inside a process group (parallel/distributed.active()) is
+this rank's share of the job's envs: the command curriculum then decides
+on the counts and tracking sums of all ranks (one all-reduce, on the
+device), so that every rank widens its command range at the same step,
+as the JAX package's global arrays do; the per-family terrain levels it
+logs are the job's means in the same way.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from ..core import maths, urdf
 from ..models import actuator_net
+from ..parallel import distributed
 from ..sim import dynamics, engine, fused
 from ..sim.contact import ContactParams
 from ..terrain import terrain as terr
@@ -373,10 +381,13 @@ class LeggedRobotEnv:
         # steps, if the mean tracking reward of the resetting envs exceeds
         # 80% of its ceiling, widen the vx range by 0.5 up to max_curriculum.
         if cfg.commands.curriculum and not init:
-            n_sel = torch.sum(mask.to(torch.float32))
-            mean_track = (torch.sum(torch.where(
-                mask, state.episode_sums["tracking_lin_vel"], 0.0))
-                / torch.clamp(n_sel, min=1.0)) / self.max_episode_length
+            sel = torch.stack([torch.sum(mask.to(torch.float32)), torch.sum(
+                torch.where(mask, state.episode_sums["tracking_lin_vel"],
+                            0.0))])
+            distributed.all_reduce_sum([sel])   # the job's resetting envs
+            n_sel, track_sum = sel
+            mean_track = (track_sum / torch.clamp(n_sel, min=1.0)
+                          / self.max_episode_length)
             tick = (state.common_step % int(self.max_episode_length)) == 0
             grow = (tick & (n_sel > 0)
                     & (mean_track > 0.8 * self.reward_scales["tracking_lin_vel"]))
@@ -604,13 +615,19 @@ class LeggedRobotEnv:
             # per-family mean level, through the metric_ channel: the
             # runner divides metric_ sums by total resets, so scale by
             # this step's resets to make the division recover a
-            # reset-weighted mean (same convention as max_command_x)
+            # reset-weighted mean (same convention as max_command_x). The
+            # mean is the job's: each family's level sum and env count
+            # are summed over the ranks before the division, so the
+            # ranks' scaled means add up to what one process would log.
             env_fam = self._fam_of_col[state.terrain_types]
-            for f, name in self._fam_names:
-                in_fam = env_fam == f
-                mean_lv = (torch.sum(torch.where(in_fam, lv, 0.0))
-                           / torch.clamp(torch.sum(in_fam), min=1))
-                stats[f"metric_level_{name}"] = mean_lv * nres_f
+            in_fam = torch.stack([env_fam == f for f, _ in self._fam_names])
+            fam = torch.cat([torch.sum(torch.where(in_fam, lv, 0.0), -1),
+                             torch.sum(in_fam, -1).to(torch.float32)])
+            distributed.all_reduce_sum([fam])
+            nf = len(self._fam_names)
+            mean_lv = fam[:nf] / torch.clamp(fam[nf:], min=1.0)
+            for i, (_, name) in enumerate(self._fam_names):
+                stats[f"metric_level_{name}"] = mean_lv[i] * nres_f
         if cfg.commands.curriculum:
             # runner divides by total resets -> reports the current max
             stats["metric_max_command_x"] = state.command_lin_vel_x[1] * nres_f

@@ -1,11 +1,16 @@
-"""Native (C++) host-side terrain generator, loaded with ctypes.
+"""Native (C++) host-side terrain code, loaded with ctypes.
 
 The port's own copy of the JAX package's native layer (src/terrain.cpp):
 built from source with g++ at first use into native/lib/ (git-ignored),
-with the same flags as the JAX package, so both packages draw the same
-Perlin heightfield from the same seed. Without a working g++ the caller
-falls back to the numpy generator (terrain/terrain.py), as the JAX
-package does.
+or by `build()` (the JAX package's native/build.py), with the same flags
+as the JAX package, so both packages draw the same Perlin heightfield
+from the same seed.
+
+  * fractal_noise(...)          — multi-octave gradient Perlin heightfield;
+  * heightfield_to_trimesh(...) — vertices/triangles for export and viz.
+
+Without a working g++ the callers use numpy instead (the Perlin generator
+of terrain/terrain.py, the trimesh code below), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ import ctypes
 import os
 import subprocess
 import tempfile
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -70,8 +75,20 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.c_uint64,
         np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
     ]
+    lib.dwbc_heightfield_to_trimesh.restype = None
+    lib.dwbc_heightfield_to_trimesh.argtypes = [
+        np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+        ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float,
+        np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+    ]
     _lib = lib
     return _lib
+
+
+def available() -> bool:
+    return _load() is not None
 
 
 def fractal_noise(x_samples: int, y_samples: int, x_scale: int, y_scale: int,
@@ -88,3 +105,33 @@ def fractal_noise(x_samples: int, y_samples: int, x_scale: int, y_scale: int,
                                 float(z_scale), octaves, float(lacunarity),
                                 float(gain), seed & (2**64 - 1), out)
     return out if rc == 0 else None
+
+
+def heightfield_to_trimesh(height: np.ndarray, cell: float,
+                           origin: Tuple[float, float]
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """(vertices (H*W, 3) f32, triangles (2(H-1)(W-1), 3) i32). Native when
+    available, numpy otherwise: identical output either way."""
+    h = np.ascontiguousarray(height, np.float32)
+    H, W = h.shape
+    lib = _load()
+    if lib is not None:
+        verts = np.empty((H * W, 3), np.float32)
+        tris = np.empty((2 * (H - 1) * (W - 1), 3), np.int32)
+        lib.dwbc_heightfield_to_trimesh(h, H, W, float(cell),
+                                        float(origin[0]), float(origin[1]),
+                                        verts, tris)
+        return verts, tris
+    xx, yy = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    verts = np.stack([origin[0] + xx.ravel() * cell,
+                      origin[1] + yy.ravel() * cell,
+                      h.ravel()], -1).astype(np.float32)
+    ii, jj = np.meshgrid(np.arange(H - 1), np.arange(W - 1), indexing="ij")
+    a = (ii * W + jj).ravel()
+    b = a + 1
+    c = a + W
+    d = c + 1
+    tris = np.empty((2 * (H - 1) * (W - 1), 3), np.int32)
+    tris[0::2] = np.stack([a, b, c], -1)
+    tris[1::2] = np.stack([b, d, c], -1)
+    return verts, tris

@@ -1,7 +1,8 @@
-// Native fractal Perlin terrain for dwbc_tpu_torch.
+// Native terrain code for dwbc_tpu_torch: the fractal Perlin generator and
+// the heightfield -> triangle mesh conversion.
 //
-// A copy of the JAX package's native generator (dwbc_tpu/native/src/
-// terrain.cpp, fractal_noise part), kept in the port so that the port
+// A copy of the JAX package's native layer (dwbc_tpu/native/src/
+// terrain.cpp), kept in the port so that the port
 // imports nothing of that package yet draws the SAME heightfield from the
 // same seed: the RNG is splitmix64-seeded xoshiro256++, which differs from
 // numpy's Generator, so matching the JAX package's terrain bit for bit
@@ -111,6 +112,36 @@ int dwbc_fractal_noise(int x_samples, int y_samples, int x_scale, int y_scale,
     ry = (int)(lacunarity * ry);
   }
   return 0;
+}
+
+// Heightfield -> triangle mesh, parity with the external
+// isaacgym.terrain_utils.convert_heightfield_to_trimesh consumed at
+// reference terrain.py:57-60 (without the slope-threshold wall correction,
+// which the reference leaves at None for the Perlin arena).
+// verts: (H*W, 3) float32; tris: (2*(H-1)*(W-1), 3) int32. Row-major,
+// x = i*cell + ox, y = j*cell + oy.
+void dwbc_heightfield_to_trimesh(const float *h, int H, int W, float cell,
+                                 float ox, float oy, float *verts,
+                                 int32_t *tris) {
+#pragma omp parallel for schedule(static)
+  for (int i = 0; i < H; ++i) {
+    for (int j = 0; j < W; ++j) {
+      float *v = verts + 3 * ((size_t)i * W + j);
+      v[0] = ox + i * cell;
+      v[1] = oy + j * cell;
+      v[2] = h[(size_t)i * W + j];
+    }
+  }
+#pragma omp parallel for schedule(static)
+  for (int i = 0; i < H - 1; ++i) {
+    for (int j = 0; j < W - 1; ++j) {
+      const int32_t a = i * W + j, b = i * W + j + 1;
+      const int32_t c = (i + 1) * W + j, d = (i + 1) * W + j + 1;
+      int32_t *t = tris + 6 * ((size_t)i * (W - 1) + j);
+      t[0] = a; t[1] = b; t[2] = c;      // upper-left triangle
+      t[3] = b; t[4] = d; t[5] = c;      // lower-right triangle
+    }
+  }
 }
 
 }  // extern "C"

@@ -14,9 +14,19 @@ Counterpart of dwbc_tpu/rl/ppo.py:
 
 The JAX package keeps its state in an immutable `PPOState` pytree and
 returns a new one per update; here `PPOState` owns the model and both
-optimizers and `update` / `update_dagger` change it in place. The
-single-device path is ported; the bf16 observation store and the sharded
-update of the JAX package are not.
+optimizers (its constructor does what the JAX `init_state` and
+`make_optimizers` do) and `update` / `update_dagger` change it in place.
+
+Data parallelism (the JAX package's `axis_name` path under shard_map):
+inside a process group (`parallel.distributed.active()`) every rank
+holds a replica of the parameters and its own share of the envs. Each rank shuffles and
+minibatches its local rows; after each minibatch's backward pass the
+gradients and the loss statistics (the KL among them) are averaged over
+the ranks in one all-reduce, so the adaptive learning rate, the clip and
+the Adam step are the same on every rank and the replicas stay equal.
+`compute_gae` then normalises the advantages with the global mean and
+population std. The JAX package's bf16 observation store
+(DWBC_BF16_OBS, off by default) is not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 
 from ..models import actor_critic as ac_lib
+from ..parallel import distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +183,9 @@ def entropy_heads(cfg: PPOConfig, std, batch_shape):
 
 def compute_gae(cfg: PPOConfig, traj: Transition, last_values: torch.Tensor):
     """Returns (returns, advantages) with global advantage normalization.
+    Inside a process group the mean and std are the whole job's (every rank
+    holds the same number of rows): the all-reduced sum gives the mean,
+    then the all-reduced squared deviations give the std.
 
     Timeout bootstrap mirrors ppo.py:133-134: rewards += gamma * values *
     time_out before GAE."""
@@ -189,8 +203,15 @@ def compute_gae(cfg: PPOConfig, traj: Transition, last_values: torch.Tensor):
     returns = advs + traj.values
     # the population std (correction=0), one mean and one std over the
     # whole (T, N, 2) block
-    advantages = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
-    return returns, advantages
+    if not dist.active():
+        advantages = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+        return returns, advantages
+    count = advs.numel() * dist.world_size()
+    mean = dist.all_reduce_sum([advs.sum().reshape(1)])[0] / count
+    centred = advs - mean
+    var = dist.all_reduce_sum([torch.square(centred).sum().reshape(1)])[0] \
+        / count
+    return returns, centred / (torch.sqrt(var) + 1e-8)
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +250,15 @@ def adapt_learning_rate(cfg: PPOConfig, lr: float, kl: float) -> float:
     return lr
 
 
+def _mean_over_ranks(params, stats):
+    """Average every parameter's gradient and the scalar `stats` over the
+    ranks in one all-reduce; returns the averaged stats (detached)."""
+    names = list(stats)
+    vec = torch.stack([stats[k].detach() for k in names])
+    dist.all_reduce_mean([p.grad for p in params] + [vec])
+    return dict(zip(names, vec.unbind()))
+
+
 def _permutation(B: int, gen, perm, device):
     if perm is not None:
         return torch.as_tensor(perm, dtype=torch.long, device=device)
@@ -247,7 +277,9 @@ def update(cfg: PPOConfig, state: PPOState, traj: Transition,
     """One full PPO update: num_learning_epochs x num_mini_batches
     minibatch gradient steps over the flattened (T*N) batch. The
     minibatch permutation comes from `gen` (a torch.Generator on the
-    batch's device) unless `perm` gives it. Changes `state` in place and
+    batch's device) unless `perm` gives it. Inside a process group the
+    batch is this rank's share and the gradients and statistics are averaged
+    over the ranks (module docstring). Changes `state` in place and
     returns the metrics (device scalars and schedule values)."""
     model = state.model
     T, N = traj.dones.shape
@@ -384,6 +416,8 @@ def update(cfg: PPOConfig, state: PPOState, traj: Transition,
             state.opt.zero_grad(set_to_none=False)
             loss, aux = loss_fn(slice(i * mb_size, (i + 1) * mb_size))
             loss.backward()
+            if dist.active():
+                aux = _mean_over_ranks(state.params, aux)
             if adaptive_lr:
                 # changed before the step of the same minibatch. Reading
                 # the KL is one host round trip per minibatch, on this
@@ -404,7 +438,9 @@ def update(cfg: PPOConfig, state: PPOState, traj: Transition,
     # per-head advantage diagnostics: is the leg head's gradient signal
     # drowned by the kappa-mixed arm advantage?
     if cfg.num_heads == 2:
-        leg_abs, arm_abs = torch.abs(advantages).mean((0, 1))  # all B rows
+        adv_abs = torch.abs(advantages).mean((0, 1))  # all B rows
+        dist.all_reduce_mean([adv_abs])   # nothing outside a group
+        leg_abs, arm_abs = adv_abs
         metrics["adv_leg_abs"] = leg_abs
         metrics["adv_arm_abs"] = arm_abs
         metrics["adv_leg_mixed_share"] = leg_abs / (
@@ -419,7 +455,9 @@ def update_dagger(cfg: PPOConfig, state: PPOState, traj: Transition,
                   perm: Optional[torch.Tensor] = None):
     """DAgger phase: regress hist latent <- sg(priv latent), training only
     the history encoder (ppo.py:265-291) with `state.hist_opt` at the
-    fixed cfg.learning_rate. Every other parameter comes out bit-equal."""
+    fixed cfg.learning_rate. Every other parameter comes out bit-equal.
+    Inside a process group the loss and gradients are averaged over the
+    ranks per minibatch."""
     if state.hist_opt is None:
         raise ValueError("update_dagger needs a model with a history "
                          "encoder")
@@ -446,6 +484,9 @@ def update_dagger(cfg: PPOConfig, state: PPOState, traj: Transition,
             grads = torch.autograd.grad(loss, state.hist_params)
             for p, g in zip(state.hist_params, grads):
                 p.grad = g
+            if dist.active():
+                loss = _mean_over_ranks(state.hist_params,
+                                        {"loss": loss})["loss"]
             _adam_step(state.hist_opt, state.hist_params, cfg.max_grad_norm,
                        cfg.learning_rate)
             total = total + loss.detach()

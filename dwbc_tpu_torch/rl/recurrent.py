@@ -10,7 +10,12 @@ where episodes end, and the update re-unrolls the whole (T, N) trajectory
 from the SAME initial carry with the same done masks, with autograd
 through the unroll (the hidden state is zero after every done either
 way). Minibatching is over the env dimension, which never splits a
-trajectory. One device; the JAX package's mesh is not ported.
+trajectory.
+
+Data parallelism as in rl/runner.py: inside a process group each rank of
+a torch.distributed job steps its own share of the envs, minibatches its
+local envs, and averages gradients and the KL over the ranks per
+minibatch; GAE normalises with the job's advantage mean and std.
 """
 
 from __future__ import annotations
@@ -23,7 +28,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..models.actor_critic_recurrent import ActorCriticRecurrent, _map_carry
+from ..parallel import distributed as dist
+from ..parallel import mesh
 from . import ppo as ppo_lib
+from .runner import rank_generators
 
 
 class RecurrentTransition(NamedTuple):
@@ -169,6 +177,8 @@ class RecurrentPPO:
                 state.opt.zero_grad(set_to_none=False)
                 loss, aux = loss_fn(idx)
                 loss.backward()
+                if dist.active():
+                    aux = ppo_lib._mean_over_ranks(state.params, aux)
                 if adaptive_lr:
                     lr = ppo_lib.adapt_learning_rate(cfg, lr,
                                                      aux["kl_mean"].item())
@@ -187,13 +197,22 @@ class RecurrentRunner:
     OnPolicyRunner drives the feedforward families). Reachable from the
     train CLI via TaskSpec.policy_class_name == 'ActorCriticRecurrent'
     (the reference's selection mechanism, on_policy_runner.py:63). Runs on
-    the env's device."""
+    the env's device. Inside a process group `env` is this rank's share of
+    the job's envs; with several ranks it must divide into
+    num_mini_batches minibatches of envs."""
 
     def __init__(self, env, cfg: ppo_lib.PPOConfig, num_steps_per_env=24,
                  seed: int = 1, rnn_hidden_size: int = 64, log_dir=None):
+        if dist.world_size() > 1 and env.num_envs % cfg.num_mini_batches:
+            raise ValueError(
+                f"this rank's {env.num_envs} envs must divide into "
+                f"num_mini_batches={cfg.num_mini_batches}: the minibatch "
+                "split happens per rank, and truncation would drop another "
+                "env subset than the single-process path")
+        self.is_main = dist.is_main()
         self.log_dir = log_dir
         self._log_f = None
-        if log_dir is not None:
+        if log_dir is not None and self.is_main:
             os.makedirs(log_dir, exist_ok=True)
             self._log_f = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         self.env = env
@@ -204,14 +223,14 @@ class RecurrentRunner:
                 num_obs=env.num_obs, num_actions=env.num_actions,
                 rnn_hidden_size=rnn_hidden_size,
                 actor_hidden_dims=(64,), critic_hidden_dims=(64,)).to(dev)
+        # the same weights on every rank (nothing to do outside a group)
+        mesh.replicate(mesh.state_tensors(self.model))
         self.ppo_state = ppo_lib.PPOState(cfg, self.model)
         self.alg = RecurrentPPO(env, self.model, cfg, num_steps_per_env)
-        # three random streams from the seed: the env's draws, the action
-        # noise, the minibatch permutations
-        gens = [torch.Generator(device=dev) for _ in range(3)]
-        for i, g in enumerate(gens):
-            g.manual_seed(3 * seed + i)
-        env_gen, self.noise_gen, self.perm_gen = gens
+        # three random streams from the seed (and the rank): the env's
+        # draws, the action noise, the minibatch permutations
+        env_gen, self.noise_gen, self.perm_gen = rank_generators(
+            dev, seed, dist.rank())
         self.env_state, self.obs = env.reset(env_gen)
         self.carry = self.model.initial_state(env.num_envs)
         self.last_dones = torch.zeros((env.num_envs,), dtype=torch.bool,
@@ -222,7 +241,8 @@ class RecurrentRunner:
         """Returns the mean step reward of every iteration."""
         history = []
         for it in range(num_iterations):
-            if self.log_dir and it > 0 and it % save_interval == 0:
+            if self.log_dir and self.is_main and it > 0 \
+                    and it % save_interval == 0:
                 self.save(os.path.join(self.log_dir, f"model_{it}"))
             h0 = self.carry
             (self.env_state, self.obs, self.carry, self.last_dones, traj,
@@ -231,20 +251,25 @@ class RecurrentRunner:
                 self.noise_gen)
             metrics = self.alg.update(self.ppo_state, traj, h0, last_values,
                                       self.perm_gen)
+            # the job's mean step reward (every rank holds as many envs)
+            step_rew = traj.rewards.mean().reshape(1)
+            dist.all_reduce_mean([step_rew])   # nothing outside a group
+            history.append(step_rew[0])
             if it % log_every != 0:
-                history.append(traj.rewards.mean())
                 continue
-            # ONE host transfer for the logged scalars; episode-based
-            # metrics on the feedforward family's names so the LSTM curve
-            # is directly comparable to flat_go1's
+            # ONE host transfer for the logged scalars, the job's sums;
+            # episode-based metrics on the feedforward family's names so
+            # the LSTM curve is directly comparable to flat_go1's
             # (on_policy_runner.py:140-154 deque semantics)
-            mean_rew, nres, rew_sum, len_sum, v_loss, s_loss = torch.stack([
-                traj.rewards.mean(), nres.to(torch.float32),
-                ep_stats["reward_sum"], ep_stats["len_sum"],
-                metrics["value_loss"], metrics["surrogate_loss"]]).tolist()
-            history.append(mean_rew)
+            sums = torch.stack([nres.to(torch.float32),
+                                ep_stats["reward_sum"], ep_stats["len_sum"]])
+            dist.all_reduce_sum([sums])
+            mean_rew, nres, rew_sum, len_sum, v_loss, s_loss = torch.cat([
+                step_rew, sums, torch.stack([metrics["value_loss"],
+                                             metrics["surrogate_loss"]])
+            ]).tolist()
             n = max(int(nres), 1)
-            if log:
+            if log and self.is_main:
                 log(f"recurrent it {it} ep rew {rew_sum / n:.3f} "
                     f"ep len {len_sum / n:.1f} step rew {mean_rew:.4f} "
                     f"vloss {v_loss:.4f}")
@@ -258,7 +283,7 @@ class RecurrentRunner:
                     "Loss/surrogate_loss": s_loss,
                 }) + "\n")
                 self._log_f.flush()
-        if self.log_dir:
+        if self.log_dir and self.is_main:
             self.save(os.path.join(self.log_dir, f"model_{num_iterations}"))
         return [float(h) for h in history]
 

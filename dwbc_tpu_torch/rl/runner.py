@@ -6,7 +6,17 @@ rollout as one compiled lax.scan and the update as a second compiled
 program; here `Rollout.collect` is a Python loop over eager steps under
 `torch.no_grad()` and `Rollout.learn_step` runs the PPO update (or the
 DAgger phase every dagger_update_freq iterations) with autograd on the
-on-device trajectory. One device; the JAX package's mesh is not ported.
+on-device trajectory.
+
+Data parallelism: the JAX package shards one global env batch over a
+('data',) mesh; here each process of a torch.distributed job (one per
+GPU, `torchrun`) is given its own share of the envs (make_runner builds
+N // world envs per rank from the same cfg and seed, so the terrain is
+the same everywhere), draws its resets, action noise and minibatch
+permutations from streams seeded by its rank, and averages gradients and
+statistics with the others in the update (rl/ppo.py). Rank 0 alone logs
+and writes checkpoints; every logged number is the whole job's: sums
+summed and means averaged over the ranks in one all-reduce.
 
 Emits the reference's metric names (Perf/total_fps, Perf/collection time,
 Perf/learning_time, Loss/*, Policy/*_noise_std) for direct comparability.
@@ -25,6 +35,8 @@ import torch
 
 from ..envs.vec_env import VecEnv
 from ..models import actor_critic as ac_lib
+from ..parallel import distributed as dist
+from ..parallel import mesh
 from . import ppo as ppo_lib
 
 
@@ -170,15 +182,19 @@ def _make_writers(log_dir: str, run_config=None):
     return writers
 
 
-def _generator(device, seed: int) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return gen
+def rank_generators(device, seed: int, rank: int = 0):
+    """Three random streams from `seed` (the env's draws, the action
+    noise, the minibatch permutations), different for every `rank` of a
+    distributed job (rank 0's are a single process's)."""
+    base = 3 * seed + 7919 * rank
+    return [torch.Generator(device=device).manual_seed(base + i)
+            for i in range(3)]
 
 
 class OnPolicyRunner:
     """The host side of training: iteration loop, logging, checkpoints.
-    Runs on the env's device."""
+    Runs on the env's device. Inside a process group `env` is this rank's
+    share of the job's envs (module docstring)."""
 
     def __init__(self, env, cfg: ppo_lib.PPOConfig = ppo_lib.PPOConfig(),
                  num_steps_per_env: int = 40, log_dir: Optional[str] = None,
@@ -186,6 +202,8 @@ class OnPolicyRunner:
         self.env = env
         self.cfg = cfg
         self.device = dev = env.device
+        self.is_main = dist.is_main()
+        self.num_envs_global = env.num_envs * dist.world_size()
         self.log_dir = log_dir
         self.save_interval = save_interval
         if model is not None:
@@ -207,13 +225,14 @@ class OnPolicyRunner:
                 torch.manual_seed(seed)
                 self.model = MlpActorCritic(
                     num_obs=env.num_obs, num_actions=env.num_actions).to(dev)
+        # the same weights on every rank (nothing to do outside a group)
+        mesh.replicate(mesh.state_tensors(self.model))
         self.ppo_state = ppo_lib.PPOState(cfg, self.model)
         self.rollout = Rollout(env, self.model, cfg, num_steps_per_env)
-        # three random streams from the seed: the env's draws, the action
-        # noise, the minibatch permutations
-        self.noise_gen = _generator(dev, 3 * seed + 1)
-        self.perm_gen = _generator(dev, 3 * seed + 2)
-        env_gen = _generator(dev, 3 * seed)
+        # three random streams from the seed (and the rank): the env's
+        # draws, the action noise, the minibatch permutations
+        env_gen, self.noise_gen, self.perm_gen = rank_generators(
+            dev, seed, dist.rank())
         self.env_state, self.obs = env.reset(env_gen)
         self.env_state = init_at_random_ep_len(
             self.env_state, env.max_episode_length, env_gen)
@@ -223,14 +242,14 @@ class OnPolicyRunner:
         self.last_collection_time = 0.0
         self.last_learn_time = 0.0
         self.last_traj = None   # the newest trajectory, for inspection
-        if self.log_dir:
+        if self.log_dir and self.is_main:
             os.makedirs(self.log_dir, exist_ok=True)
             self._log_f = open(os.path.join(self.log_dir, "metrics.jsonl"),
                                "a")
             run_config = {
                 "env_cfg": dataclasses.asdict(env.cfg),
                 "ppo_cfg": dataclasses.asdict(cfg),
-                "num_envs": env.num_envs,
+                "num_envs": self.num_envs_global,
                 "num_steps_per_env": num_steps_per_env,
             }
             self._writers = _make_writers(self.log_dir, run_config)
@@ -263,7 +282,7 @@ class OnPolicyRunner:
             self._sync()
             learn_time = time.time() - t0
 
-            self.tot_timesteps += self.rollout.num_steps * env.num_envs
+            self.tot_timesteps += self.rollout.num_steps * self.num_envs_global
             self.tot_time += collection_time + learn_time
             self.last_collection_time = collection_time
             self.last_learn_time = learn_time
@@ -272,13 +291,14 @@ class OnPolicyRunner:
 
             if it % log_every == 0 or it == num_iterations - 1:
                 self._log(it, metrics, stats, nres, collection_time, learn_time)
-            if self.log_dir and it > 0 and it % self.save_interval == 0:
+            if (self.log_dir and self.is_main and it > 0
+                    and it % self.save_interval == 0):
                 self.save(os.path.join(self.log_dir, f"model_{it}"))
-        if self.log_dir:
+        if self.log_dir and self.is_main:
             self.save(os.path.join(self.log_dir, f"model_{self.it}"))
 
     def _log(self, it, metrics, stats, nres, collection_time, learn_time):
-        fps = int(self.rollout.num_steps * self.env.num_envs
+        fps = int(self.rollout.num_steps * self.num_envs_global
                   / max(collection_time + learn_time, 1e-9))
         # ONE host transfer for the ~75 logged scalars: a .item() each
         # would be as many synchronisations
@@ -286,9 +306,19 @@ class OnPolicyRunner:
         scalars.update({"s/" + k: v for k, v in stats.items()})
         scalars["nres"] = nres
         on_dev = [k for k, v in scalars.items() if torch.is_tensor(v)]
+        vec = torch.stack([scalars[k].detach().to(torch.float32)
+                           for k in on_dev])
+        if dist.active():
+            # the job's numbers: sums summed, means averaged (the losses
+            # are already equal on every rank; terrain_level and step_*
+            # are per-step means over envs)
+            dist.all_reduce_sum([vec])
+            is_mean = torch.tensor(
+                [k.startswith(("m/", "s/step_")) or k == "s/terrain_level"
+                 for k in on_dev], device=vec.device)
+            vec = torch.where(is_mean, vec / dist.world_size(), vec)
         std = self.model.std.detach()
-        host = torch.cat([torch.stack([scalars[k].detach().to(torch.float32)
-                                       for k in on_dev]), std]).tolist()
+        host = torch.cat([vec, std]).tolist()
         scalars.update(zip(on_dev, host))
         std = host[len(on_dev):]
         metrics = {k: float(scalars["m/" + k]) for k in metrics}
@@ -306,7 +336,8 @@ class OnPolicyRunner:
             "Train/mean_reward": stats["reward_sum"] / nres,
             "Train/mean_arm_reward": stats["arm_reward_sum"] / nres,
             "Train/mean_episode_length": stats["len_sum"] / nres,
-            "Train/dones": nres / self.env.num_envs / self.rollout.num_steps,
+            "Train/dones": (nres / self.num_envs_global
+                            / self.rollout.num_steps),
         }
         for k, v in metrics.items():
             d["Loss/" + k] = v
@@ -326,7 +357,8 @@ class OnPolicyRunner:
                 f" | arm {d['Train/mean_arm_reward']:.3f}"
                 f" | len {d['Train/mean_episode_length']:.1f}"
                 f" | collect {collection_time:.3f}s learn {learn_time:.3f}s")
-        print(line, flush=True)
+        if self.is_main:
+            print(line, flush=True)
         if self._log_f:
             self._log_f.write(json.dumps(d) + "\n")
             self._log_f.flush()

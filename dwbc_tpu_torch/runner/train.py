@@ -9,7 +9,17 @@ task, num_envs, seed, max_iterations, resume, run naming). --task takes
 every name of utils.task_registry.TASKS: the widowGo1 family, the legged
 robots (go1, a1, anymal_c, anymal_b, cassie; rough and flat) and
 go1_flat_lstm, which trains the recurrent policy through RecurrentRunner.
-Runs on the NVIDIA GPU and raises without one, unless --cpu is given."""
+Runs on the NVIDIA GPU and raises without one, unless --cpu is given.
+
+Several GPUs: torchrun --nproc_per_node=K -m dwbc_tpu_torch.runner.train
+--task go1 --num_envs 8192 ... starts one process per GPU; with --mesh
+auto (the default) they train data-parallel, each rank stepping
+num_envs / K envs on cuda:LOCAL_RANK, with NCCL (gloo with --cpu) for
+the gradient and statistic all-reduces (parallel/distributed.py). Rank 0
+logs and writes the checkpoints. --mesh none, or a process started
+without torchrun, trains on one device; `torchrun --nproc_per_node=1`
+trains on one GPU through the same collectives (NCCL over a group of
+one)."""
 
 from __future__ import annotations
 
@@ -34,9 +44,9 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the GPU")
     ap.add_argument("--mesh", default="auto", choices=["auto", "none"],
-                    help="accepted for compatibility with the JAX CLI; "
-                         "training runs on one device whatever the value "
-                         "(sharding envs over several GPUs is not ported)")
+                    help="auto: under torchrun train data-parallel over "
+                         "the ranks, one GPU each; none (or no launcher): "
+                         "one device")
     ap.add_argument("--profile", action="store_true",
                     help="capture a torch.profiler trace of iterations 5-8 "
                          "into <log_dir>/profile")
@@ -87,6 +97,7 @@ def main(argv=None):
 
     import torch
 
+    from ..parallel import distributed as dist
     from ..rl.ppo import PPOConfig
     from ..utils.logger import log_files
     from ..utils.task_registry import TASKS, make_runner
@@ -97,6 +108,10 @@ def main(argv=None):
     if args.task not in TASKS:
         raise SystemExit(f"unknown task {args.task!r}; have {list(TASKS)}")
     device = "cpu" if args.cpu else "cuda"
+    if args.mesh == "auto":
+        # joins the launcher's group (torchrun), a launch of one process
+        # included; without a launcher it only resolves the device
+        device = dist.initialize(device=device)
 
     run_name = args.exptid or time.strftime("%b%d_%H-%M-%S")
     log_dir = os.path.join(args.log_root, TASKS[args.task].experiment_name,
@@ -157,9 +172,13 @@ def main(argv=None):
                   "reward-scale curricula pinned terminal")
     if args.terminal_schedules:
         runner.force_terminal_schedules()
-    log_files(log_dir)  # source snapshot (reference logger.py:39-58)
-    print(f"task={args.task} num_envs={env.num_envs} device={env.device} "
-          f"steps/env={spec.num_steps_per_env} log_dir={log_dir}", flush=True)
+    if runner.is_main:
+        log_files(log_dir)  # source snapshot (reference logger.py:39-58)
+        print(f"task={args.task} num_envs={env.num_envs * dist.world_size()}"
+              f" ranks={dist.world_size()} backend={dist.backend()} "
+              f"device={env.device} "
+              f"steps/env={spec.num_steps_per_env} log_dir={log_dir}",
+              flush=True)
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
@@ -177,6 +196,7 @@ def main(argv=None):
     else:
         runner.learn(args.max_iterations, log_every=args.log_every)
     runner.close()
+    dist.shutdown()
     return runner
 
 

@@ -1,20 +1,29 @@
 """Compliant terrain contact over a static sphere set: the plain law.
 
-Counterpart of dwbc_tpu/sim/contact.py (`ContactParams` and the
-production law `fused_terrain_law`). Every robot has a static list of
-collision spheres, each tested against the cached terrain tangent plane
-in O(1); all arrays are (ng, N) with masked inactive contacts.
+Counterpart of dwbc_tpu/sim/contact.py. Every robot has a static list of
+collision spheres, each tested against the terrain in O(1).
 
-`fused_terrain_law` is the plain PyTorch version of the contact kernel
-(ops/contact_kernel.py + csrc/contact_law.cu): the CPU path, and the
-oracle the kernel is held against on the card.
+Two laws:
+  * `fused_terrain_law`, the production law of the envs' substep: every
+    array is (ng, N) with masked inactive contacts, against cached
+    terrain tangent planes. It is the plain PyTorch version of the
+    contact kernel (ops/contact_kernel.py + csrc/contact_law.cu): the CPU
+    path, and the oracle the kernel is held against on the card.
+  * `terrain_contact`, the per-env compliant law of the unfused step
+    (sim/engine.py), batched over leading dims. The JAX package computes
+    it outside any Pallas kernel, and here it is plain torch on any
+    device.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
+
+from ..core.model import RobotModel
+from ..terrain.terrain import Heightfield
+from .dynamics import Kin, _mv
 
 
 class ContactParams(NamedTuple):
@@ -35,6 +44,82 @@ class ContactParams(NamedTuple):
     fn_max: float = 2000.0    # per-contact force clamp [N]
     vel_eps: float = 1e-4     # tangential speed regularizer
     dt: float = 0.005         # must match SimParams.dt
+
+
+class ContactOut(NamedTuple):
+    geom_force: torch.Tensor   # (..., ng, 3) world force on each geom sphere
+    body_wrench: torch.Tensor  # (..., nb, 6) world [torque; force] at body origins
+    geom_pos: torch.Tensor     # (..., ng, 3) world sphere centers
+    penetration: torch.Tensor  # (..., ng) signed distance (negative = contact)
+
+
+def geom_world_state(model: RobotModel,
+                     kin: Kin) -> Tuple[torch.Tensor, torch.Tensor]:
+    """World positions and velocities (..., ng, 3) of all collision sphere
+    centers."""
+    dev = kin.pos.device
+    gb = torch.as_tensor(model.geom_body, dtype=torch.long, device=dev)
+    offs = torch.as_tensor(model.geom_pos, dtype=torch.float32, device=dev)
+    R = kin.rot[..., gb, :, :]                   # (..., ng, 3, 3)
+    origin = kin.pos[..., gb, :]
+    p = origin + _mv(R, offs)
+    # point velocity: world-frame v_origin + w x r
+    vel = kin.vel[..., gb, :]
+    w_w = _mv(R, vel[..., :3])
+    v = _mv(R, vel[..., 3:]) + torch.linalg.cross(w_w, p - origin)
+    return p, v
+
+
+def terrain_contact(model: RobotModel, kin: Kin, hf: Heightfield, friction,
+                    params: ContactParams, m_solo: torch.Tensor,
+                    m_body: torch.Tensor) -> ContactOut:
+    """World contact forces over any leading batch dims of `kin`.
+    friction: a float or a per-env (...,) tensor; m_solo / m_body: (ng,)
+    solo-contact and body-origin translational effective masses."""
+    p, v = geom_world_state(model, kin)
+    dev = p.device
+    radius = torch.as_tensor(model.geom_radius, dtype=torch.float32,
+                             device=dev)
+    h = hf.sample(p[..., 0], p[..., 1])
+    n = hf.normal(p[..., 0], p[..., 1])          # (..., ng, 3)
+    phi = (p[..., 2] - h) * n[..., 2] - radius   # approx signed distance
+
+    dt = params.dt
+    vn = torch.sum(v * n, -1)
+    active = phi < 0.0
+    # split each body's effective mass among its simultaneously active
+    # contacts (a resting box face has 4 corner contacts sharing one body;
+    # solo-contact impulses would overshoot 4x and launch it)
+    gb = torch.as_tensor(model.geom_body, dtype=torch.long, device=dev)
+    batch = p.shape[:-2]
+    per_body = torch.zeros(batch + (model.nb,), device=dev).index_add_(
+        -1, gb, active.to(torch.float32))
+    share = torch.clamp(per_body[..., gb], min=1.0)
+    # min(solo, body/share): never exceed what the contact POINT can absorb
+    m_share = torch.minimum(m_solo, m_body / share)
+    # desired normal acceleration: cancel approach velocity + pushout
+    push_v = torch.clamp(params.baumgarte * torch.clamp(-phi - params.slop,
+                                                        min=0.0) / dt,
+                         max=params.max_depen_vel)
+    acc_n = (-vn) / dt + push_v / dt
+    fn = torch.where(active, torch.clamp(m_share * acc_n, 0.0, params.fn_max),
+                     0.0)
+
+    vt = v - vn[..., None] * n
+    vt_norm = torch.linalg.norm(vt, dim=-1)
+    # stick impulse up to the friction cone
+    mu = torch.as_tensor(friction, dtype=torch.float32, device=dev)[..., None]
+    ft_mag = torch.minimum(mu * fn, m_share * vt_norm / dt)
+    ft = -vt / (vt_norm + params.vel_eps)[..., None] * ft_mag[..., None]
+    force = fn[..., None] * n + torch.where(active[..., None], ft, 0.0)
+
+    # accumulate per-body wrench at body origins (world frame)
+    torque = torch.linalg.cross(p - kin.pos[..., gb, :], force)
+    zeros = torch.zeros(batch + (model.nb, 3), device=dev)
+    wrench = torch.cat([zeros.index_add(-2, gb, torque),
+                        zeros.index_add(-2, gb, force)], -1)
+    return ContactOut(geom_force=force, body_wrench=wrench, geom_pos=p,
+                      penetration=phi)
 
 
 class GeomConst(NamedTuple):

@@ -1,13 +1,14 @@
 """Articulated rigid-body kinematics, the CRBA mass matrix, the RNEA bias
 forces and body jacobians (torch).
 
-Counterpart of dwbc_tpu/sim/dynamics.py: `fk`, `crba`, `rnea_bias` and
-`body_jacobian`. The JAX functions take ONE env's state and are vmapped by
-their callers; these take any leading batch dimensions on q, qd and the
-inertial parameters directly, and compute on q's device. With no batch
-dimension they serve sim/engine.build_ctx (build-time work on the CPU);
-with a batch of envs they serve the OSC expert of envs/widowgo1.py. The
-per-substep dynamics (batched FK + ABA) live in sim/fused.py.
+Counterpart of dwbc_tpu/sim/dynamics.py: `fk`, `crba`, `aba`, `rnea_bias`
+and `body_jacobian`. The JAX functions take ONE env's state and are
+vmapped by their callers; these take any leading batch dimensions on q,
+qd and the inertial parameters directly, and compute on q's device. With
+no batch dimension they serve sim/engine.build_ctx (build-time work on
+the CPU); with a batch of envs they serve the OSC expert of
+envs/widowgo1.py and the unfused step of sim/engine.py. The envs step
+through the batched FK + ABA of sim/fused.py.
 
 Generalized coordinates: q = [base pos(3), base quat xyzw(4), joints(nj)],
 qd = [base lin vel (world), base ang vel (world), joint vels].
@@ -108,12 +109,95 @@ def fk(model: RobotModel, q: torch.Tensor, qd: torch.Tensor) -> Kin:
                vel=torch.stack(vels, -2), j_rot=j_rot, j_pos=j_pos)
 
 
+def _spatial_inertias(inert: Inertial) -> torch.Tensor:
+    """(..., nb, 6, 6) spatial inertias about body origins."""
+    return spatial.spatial_inertia(inert.mass, inert.com, inert.inertia)
+
+
 def _gravity_wrench(kin: Kin, inert: Inertial, gravity: torch.Tensor):
     """Per-body gravity as spatial force [n; f] in BODY coords at origin."""
     g_b = _mtv(kin.rot, gravity)                       # (..., nb, 3)
     f = inert.mass[..., None] * g_b
     n = torch.linalg.cross(inert.com.expand_as(f), f)
     return torch.cat([n, f], -1)
+
+
+def world_wrench_to_body(kin: Kin, f_ext_world: torch.Tensor) -> torch.Tensor:
+    """Convert (..., nb, 6) world-frame wrenches [n; f] at body origins
+    into body coordinates."""
+    return torch.cat([_mtv(kin.rot, f_ext_world[..., :3]),
+                      _mtv(kin.rot, f_ext_world[..., 3:])], -1)
+
+
+def aba(model: RobotModel, inert: Inertial, q: torch.Tensor,
+        qd: torch.Tensor, tau: torch.Tensor,
+        f_ext_world: Optional[torch.Tensor] = None,
+        gravity: Tuple[float, float, float] = (0.0, 0.0, -9.81),
+        kin: Optional[Kin] = None) -> Tuple[torch.Tensor, Kin]:
+    """Articulated-body forward dynamics over any leading batch dims.
+
+    tau: (..., nj) joint torques. f_ext_world: optional (..., nb, 6) world
+    wrenches [torque; force] at body origins (contacts, pushes).
+    Returns qdd = (..., nv) = [base lin acc (world), base ang acc (world),
+    joint accs] and the Kin used."""
+    nb = model.nb
+    if kin is None:
+        kin = fk(model, q, qd)
+    j_rot, j_pos, S = _joint_transform(model, q[..., 7:])
+    I_sp = _spatial_inertias(inert)
+    f_bias = _gravity_wrench(kin, inert, _f32(gravity, q.device))
+    if f_ext_world is not None:
+        f_bias = f_bias + world_wrench_to_body(kin, f_ext_world)
+
+    # pass 1: velocity products and bias forces
+    v = kin.vel
+    c = [torch.zeros_like(v[..., 0, :])]
+    for i in range(1, nb):
+        c.append(spatial.cross_motion(v[..., i, :],
+                                      S[i] * qd[..., 6 + i - 1, None]))
+    pA = list((spatial.cross_force(v, _mv(I_sp, v)) - f_bias).unbind(-2))
+    IA = list(I_sp.unbind(-3))
+
+    # pass 2: inward articulated inertia recursion
+    U, d, u = [None] * nb, [None] * nb, [None] * nb
+    armature = _f32(model.dof_armature, q.device)
+    for i in range(nb - 1, 0, -1):
+        p = int(model.parent[i])
+        U[i] = _mv(IA[i], S[i])
+        d[i] = (S[i] * U[i]).sum(-1) + armature[i - 1]
+        u[i] = tau[..., i - 1] - (S[i] * pA[i]).sum(-1)
+        Ia = IA[i] - U[i][..., :, None] * U[i][..., None, :] / d[i][..., None,
+                                                                    None]
+        pa = pA[i] + _mv(Ia, c[i]) + U[i] * (u[i] / d[i])[..., None]
+        Xf = spatial.x_force(j_rot[..., i, :, :], j_pos[..., i, :])
+        Xm_inv = spatial.x_motion_inv(j_rot[..., i, :, :], j_pos[..., i, :])
+        IA[p] = IA[p] + Xf @ Ia @ Xm_inv
+        pA[p] = pA[p] + _mv(Xf, pa)
+
+    # pass 3: outward accelerations
+    # base spatial accel, body coords
+    a0 = torch.linalg.solve(IA[0], -pA[0][..., None])[..., 0]
+    a = [a0]
+    qdd_j = []
+    for i in range(1, nb):
+        Ri, pi = j_rot[..., i, :, :], j_pos[..., i, :]
+        ap = a[int(model.parent[i])]
+        w_p, u_p = ap[..., :3], ap[..., 3:]
+        a_in = torch.cat([_mtv(Ri, w_p),
+                          _mtv(Ri, u_p + torch.linalg.cross(w_p, pi))],
+                         -1) + c[i]
+        qdd_i = (u[i] - (U[i] * a_in).sum(-1)) / d[i]
+        qdd_j.append(qdd_i)
+        a.append(a_in + S[i] * qdd_i[..., None])
+
+    # base spatial accel (body coords) -> world coordinate accelerations
+    R0 = kin.rot[..., 0, :, :]
+    w_b, v_b = kin.vel[..., 0, :3], kin.vel[..., 0, 3:]
+    ang_acc_w = _mv(R0, a0[..., :3])
+    lin_acc_w = _mv(R0, a0[..., 3:] + torch.linalg.cross(w_b, v_b))
+    joint_qdd = (torch.stack(qdd_j, -1) if qdd_j
+                 else q.new_zeros(q.shape[:-1] + (0,)))
+    return torch.cat([lin_acc_w, ang_acc_w, joint_qdd], -1), kin
 
 
 def crba(model: RobotModel, inert: Inertial, q: torch.Tensor) -> torch.Tensor:

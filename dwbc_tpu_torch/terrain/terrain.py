@@ -5,8 +5,9 @@ Counterpart of dwbc_tpu/terrain/terrain.py: `Heightfield` sampling,
 cols = type, seven subterrain kinds). Generation runs once at startup in
 numpy / native C++ (the numpy generators are the JAX package's line for
 line, so that one seed gives bit-equal heights); the heightfield then
-lives on the device as a float32 tensor with O(1) bilinear lookups. The
-trimesh export of the JAX module is not ported.
+lives on the device as a float32 tensor with O(1) bilinear lookups.
+`heightfield_to_trimesh` exports a heightfield as a triangle mesh (numpy,
+host side).
 
 The grid lookups clamp their indices exactly as the reference does
 (terrain.py:56-57, 101-102): JAX clamps out-of-range gathers silently,
@@ -440,3 +441,43 @@ def grid_terrain(cfg: GridTerrainCfg, device="cuda") -> GridTerrain:
     hf = heightfield_from_numpy(field, cfg.horizontal_scale,
                                 (-cfg.border_size, -cfg.border_size), dev)
     return GridTerrain(hf=hf, env_origins=origins, length=cfg.terrain_length)
+
+
+def heightfield_to_trimesh(hf: Heightfield, slope_threshold=None):
+    """(vertices, triangles) export of a heightfield — parity with the
+    external isaacgym.terrain_utils.convert_heightfield_to_trimesh the
+    reference consumes (terrain.py:57-60). Used by the offline visualizer
+    and deployment-mesh export; native C++ when built.
+
+    With slope_threshold (the reference passes cfg.slope_treshold), the
+    walkable-surface correction is applied: vertices on slopes steeper
+    than the threshold shift horizontally so steep faces become
+    near-vertical walls (stairs stay stairs instead of ramps). Collision
+    samples the heightfield bilinearly, so the correction affects exported
+    meshes only (PhysX collides the corrected trimesh)."""
+    height = hf.height.detach().cpu().numpy()
+    if slope_threshold is None:
+        return native.heightfield_to_trimesh(height, hf.cell, hf.origin)
+    h = height.astype(np.float64)
+    H, W = h.shape
+    cell = hf.cell
+    thr = slope_threshold * cell
+    move_x = np.zeros((H, W))
+    move_y = np.zeros((H, W))
+    move_c = np.zeros((H, W))
+    move_x[:H - 1, :] += (h[1:, :] - h[:-1, :] > thr)
+    move_x[1:, :] -= (h[:-1, :] - h[1:, :] > thr)
+    move_y[:, :W - 1] += (h[:, 1:] - h[:, :-1] > thr)
+    move_y[:, 1:] -= (h[:, :-1] - h[:, 1:] > thr)
+    move_c[:H - 1, :W - 1] += (h[1:, 1:] - h[:-1, :-1] > thr)
+    move_c[1:, 1:] -= (h[:-1, :-1] - h[1:, 1:] > thr)
+    ii, jj = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    xs = hf.origin[0] + (ii + move_x + move_c * (move_x == 0)) * cell
+    ys = hf.origin[1] + (jj + move_y + move_c * (move_y == 0)) * cell
+    verts = np.stack([xs.ravel(), ys.ravel(), h.ravel()], -1)
+    # two triangles per cell, [v0, v3, v1] and [v0, v2, v3]
+    v0 = (ii[:-1, :-1] * W + jj[:-1, :-1]).ravel()
+    tris = np.empty((2 * (H - 1) * (W - 1), 3), np.uint32)
+    tris[0::2] = np.stack([v0, v0 + W + 1, v0 + 1], -1)
+    tris[1::2] = np.stack([v0, v0 + W, v0 + W + 1], -1)
+    return verts.astype(np.float32), tris

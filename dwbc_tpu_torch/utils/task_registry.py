@@ -116,7 +116,13 @@ def make_runner(task: str, num_envs=None, seed: int = 1, log_dir=None,
                 device="cuda", ppo_overrides=None, env_setup=None):
     """(env, runner, spec). `env_setup(env)` sets env flags
     (spawn_relative, droop compensation, ...) before the runner's initial
-    reset; `ppo_overrides` replaces fields of the task's PPOConfig."""
+    reset; `ppo_overrides` replaces fields of the task's PPOConfig.
+
+    Inside a process group the run is data-parallel: num_envs is the
+    job's count, and this rank builds its N // world envs from the same
+    cfg and seed (the same terrain on every rank); `env` is that shard."""
+    from ..parallel import distributed as dist
+    num_envs = dist.host_env_count(num_envs or TASKS[task].default_num_envs)
     env, spec = make_env(task, num_envs, seed, device)
     if env_setup is not None:
         env_setup(env)

@@ -131,6 +131,10 @@ def test_plain_law_matches_jax_law(n, ng, nb, sorted):
     pytest.param(4096, 28, 13, True, id="anymal_b-28x13x4096"),
     pytest.param(4096, 22, 13, True, id="anymal_c-22x13x4096"),
     pytest.param(4096, 5, 13, True, id="cassie-5x13x4096"),
+    # play's 5 envs, and one of two ranks' share of go1's 4096 envs
+    pytest.param(5, 92, 13, True, id="go1-play-92x13x5"),
+    pytest.param(5, 84, 21, True, id="widowGo1-play-84x21x5"),
+    pytest.param(2048, 92, 13, True, id="go1-rank-92x13x2048"),
 ])
 def test_cuda_kernel_matches_plain_law(n, ng, nb, sorted):
     if not torch.cuda.is_available():

@@ -1,15 +1,19 @@
-"""The port's public builders run on `cuda` unless the caller passes
-device="cpu": called without a device on a machine without a card, each
-raises instead of quietly building CPU tensors."""
+"""The port's public builders and entry points run on `cuda` unless the
+caller passes device="cpu" (or --cpu): called without a device on a
+machine without a card, each raises instead of quietly building CPU
+tensors."""
 
 import numpy as np
 import pytest
 import torch
 
+from dwbc_tpu_torch.core import maths
 from dwbc_tpu_torch.core.model import free_body_model
 from dwbc_tpu_torch.envs import legged_config
 from dwbc_tpu_torch.envs.legged_robot import LeggedRobotEnv
 from dwbc_tpu_torch.models import actuator_net
+from dwbc_tpu_torch.parallel import dryrun
+from dwbc_tpu_torch.runner import export, play
 from dwbc_tpu_torch.sim import dynamics, engine, fused
 from dwbc_tpu_torch.terrain import terrain
 
@@ -31,6 +35,12 @@ BUILDERS = {
     "LeggedRobotEnv": lambda: LeggedRobotEnv(legged_config.go1_flat(), 4),
     "actuator_net.load_params": lambda: actuator_net.load_params(),
     "actuator_net.init_hidden": lambda: actuator_net.init_hidden(4),
+    "quat_identity": lambda: maths.quat_identity((2,)),
+    "export.main": lambda: export.main(["--task", "go1_flat",
+                                        "--checkpoint", "unused"]),
+    "export.load_artifact": lambda: export.load_artifact("unused"),
+    "play.main": lambda: play.main(["--task", "go1_flat", "--steps", "1"]),
+    "dryrun": lambda: dryrun.main(["2"]),
 }
 
 

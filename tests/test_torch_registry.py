@@ -8,6 +8,7 @@ without a history-encoder optimizer)."""
 import dataclasses
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -27,6 +28,26 @@ ALL = ["widowGo1", "widowGo1_flat", "widowGo1_adaptive", "go1", "go1_flat",
        "cassie", "go1_flat_lstm"]
 SPHERES = {"go1": 92, "a1": 76, "anymal_b": 28, "anymal_c_rough": 22,
            "cassie": 5}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_tensorflow():
+    """TensorBoard's event writer imports TensorFlow where it is
+    installed, which takes many seconds, and uses none of it: without it
+    the writer takes its own stub and writes the same event files."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "tensorflow", None)
+        yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The envs here are small: beside other test workers on the same
+    machine, one thread per core only oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_registry_complete():

@@ -9,6 +9,7 @@ and the checkpoint round trip. 16 envs, 40 steps.
 
 import json
 import os
+import sys
 
 import pytest
 import torch
@@ -36,6 +37,16 @@ PPO_LOSS_KEYS = [
     "Loss/torque_supervision_weight", "Loss/hist_latent_loss",
     "Loss/adv_leg_abs", "Loss/adv_arm_abs", "Loss/adv_leg_mixed_share",
 ]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_tensorflow():
+    """TensorBoard's event writer imports TensorFlow where it is
+    installed, which takes many seconds, and uses none of it: without it
+    the writer takes its own stub and writes the same event files."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "tensorflow", None)
+        yield
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -1,7 +1,8 @@
 """The port's terrain against the JAX package's: the same Perlin heights
 bit for bit from the same seed (native C++ generator and numpy
-generator), and heightfield lookups at 1e-6, points outside the grid
-included."""
+generator), heightfield lookups at 1e-6, points outside the grid
+included, and the trimesh export (native, numpy and the JAX package's:
+triangles exact, vertices 1e-6)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -65,3 +66,42 @@ def test_heightfield_lookups_match(method):
     for r, o in zip(ref, out):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-6,
                                    atol=1e-6)
+
+
+def _stairs(seed):
+    """A small heightfield with steps (walls for the slope correction)
+    and noise."""
+    rng = np.random.default_rng(seed)
+    h = np.floor(np.arange(9)[:, None] / 3.0) * 0.12 + np.zeros((9, 7))
+    return (h + 0.005 * rng.normal(size=h.shape)).astype(np.float32)
+
+
+def test_trimesh_native_matches_numpy(monkeypatch):
+    h = np.arange(20, dtype=np.float32).reshape(4, 5) * 0.01
+    assert native.available()
+    vn, tn = native.heightfield_to_trimesh(h, 0.1, (-1.0, 2.0))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_failed", True)
+    assert not native.available()
+    vf, tf = native.heightfield_to_trimesh(h, 0.1, (-1.0, 2.0))
+    np.testing.assert_allclose(vn, vf, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(tn, tf)
+    assert tn.dtype == tf.dtype == np.int32
+
+
+@pytest.mark.parametrize("slope_threshold", [None, 0.75])
+def test_trimesh_matches_jax(slope_threshold):
+    h = _stairs(3)
+    ref_v, ref_t = jterr.heightfield_to_trimesh(
+        jterr.Heightfield(height=jnp.asarray(h), cell=0.1, origin=(-0.4, 0.3)),
+        slope_threshold)
+    v, t = terr.heightfield_to_trimesh(
+        terr.heightfield_from_numpy(h, 0.1, (-0.4, 0.3), "cpu"),
+        slope_threshold)
+    assert t.dtype == ref_t.dtype and v.dtype == ref_v.dtype
+    np.testing.assert_array_equal(t, ref_t)
+    np.testing.assert_allclose(v, ref_v, rtol=0, atol=1e-6)
+    if slope_threshold is not None:   # the correction moved some vertices
+        flat_v, _ = terr.heightfield_to_trimesh(
+            terr.heightfield_from_numpy(h, 0.1, (-0.4, 0.3), "cpu"))
+        assert not np.allclose(v[:, :2], flat_v[:, :2])
