@@ -4,6 +4,7 @@
     python3 chip_smoke.py --profile  # also writes per-kernel profiles of
                                      # one env step and of the learn steps
                                      # to chiprun_out/
+    python3 chip_smoke.py --learning-curve 301   # go1_flat training only
 
 Phases, each of which raises on failure (exit code != 0):
   1. the card's name and power limit (nvidia-smi);
@@ -100,7 +101,21 @@ Phases, each of which raises on failure (exit code != 0):
  17. cold path: 600 substeps of sim/engine.make_batched_step (the
      unfused step, plain torch) for widowGo1 standing under PD hold at
      1024 envs (finite, base height 0.24-0.35 m), and 2 substeps of 4 of
-     those envs on the card against the CPU (atol 1e-4).
+     those envs on the card against the CPU (atol 1e-4);
+ 18. harness: the benchmark harness's main() (dwbc_tpu_torch/bench.py) in
+     process on widowGo1 x 8192 x 40, go1 x 4096 x 24 and go1_flat_lstm x
+     4096 x 24 with one warm-up iteration and two interleaved windows of
+     one iteration; every key of its JSON line present and set, the
+     median of its windows, 160 / 96 / 96 kernel launches per iteration,
+     each kernel shape among KERNEL_SHAPES, the card's nvidia-smi name;
+ 19. repairs: solve_spd on SPD, zero-pivot and NaN matrices (NaN only in
+     the NaN matrix, the rest as on the CPU), aba with a massless env
+     (non-finite in that env only, no raise), the heightfield at NaN, inf
+     and 1e20 coordinates (no device-side assert), one widowGo1_adaptive
+     step at 1024 envs with one env's velocities NaN (that env bad and
+     reset, everything else finite); and the wall time of one
+     `_osc_target` call at 1024 envs with solve_spd's pivot-floored
+     factorisation and with the raising Cholesky it replaced, in turns.
 Every env a phase builds must have its (spheres, bodies, envs) among
 KERNEL_SHAPES. The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -123,21 +138,18 @@ import time
 import numpy as np
 import torch
 
+from dwbc_tpu_torch.utils.measure import (
+    N_SETS, PLAIN_LAUNCHES, TIMED_LAUNCHES, card, device_kernel_rows,
+    device_ms, law_bound_ms, law_bytes, random_scene)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 NUM_ENVS = 8192
 VARIANT_ENVS = 1024
 NUM_STEPS = 40
 DECIMATION = 4
 LEGGED_ENVS = 4096
 LEGGED_STEPS = 24
-# float operations of the contact law per (sphere, env), counted from
-# sim/contact.fused_terrain_law: plane evaluation 13, mass share 3,
-# normal/tangent speeds and directional masses 57, warm-start split 16,
-# normal force 8, friction 19, outputs and carry 24
-LAW_FLOPS_PER_ELEM = 140
 # (ng, nb, N, geom->body map sorted); the first two are the shapes the
 # driven paths give the kernel
 PLAY_ENVS = 5
@@ -152,69 +164,10 @@ KERNEL_SHAPES = ((84, 21, NUM_ENVS, True), (84, 21, VARIANT_ENVS, True),
                  # play's widths, and one rank's half of go1's 4096 envs
                  (92, 13, PLAY_ENVS, True), (84, 21, PLAY_ENVS, True),
                  (92, 13, LEGGED_ENVS // 2, True))
-N_SETS = 3            # 3 x 41 MB of inputs at 84 x 8192 > the 50 MB L2
-TIMED_LAUNCHES = 60
-PLAIN_LAUNCHES = 12   # ~100 elementwise kernels each
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def random_scene(n, ng, nb, seed, device, sorted=True):
-    """Contact-law inputs with about half the spheres in contact; the
-    geom->body map sorted by body or in random order."""
-    rng = np.random.default_rng(seed)
-    f32 = np.float32
-    t = lambda a: torch.as_tensor(np.asarray(a, f32), device=device)
-    gp = rng.normal(size=(3, ng, n)) * 0.3
-    nx, ny = 0.3 * rng.normal(size=(2, ng, n))
-    inv = 1.0 / np.sqrt(nx * nx + ny * ny + 1.0)
-    w = rng.normal(size=(ng, 3, 3)) * 0.3
-    m_solo = rng.uniform(0.3, 2.0, ng)
-    W = w @ w.transpose(0, 2, 1) + np.eye(3) / m_solo[:, None, None]
-    from dwbc_tpu_torch.sim.contact import ContactParams, GeomConst
-    body = rng.integers(0, nb, ng)
-    body = np.sort(body) if sorted else body
-    gc = GeomConst(
-        radius=t(rng.uniform(0.01, 0.05, ng)), m_solo=t(m_solo),
-        m_body=t(rng.uniform(1.0, 8.0, ng)),
-        w6=t([W[:, i, j] for i, j in
-              ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))]),
-        geom_body=torch.as_tensor(body.astype(np.int32), device=device),
-        nb=nb)
-    cache = (t(0.1 * rng.normal(size=(ng, n))),
-             t(np.stack([nx * inv, ny * inv, inv])),
-             t(gp[0] - 0.01), t(gp[1] + 0.02))
-    return (t(gp), t(rng.normal(size=(3, ng, n))), cache,
-            t(np.abs(rng.normal(size=(3, ng, n))) * 5.0),
-            t(np.linspace(0.4, 2.5, n)), gc, ContactParams(dt=0.005), 0.005)
-
-
-def device_ms(fn, sets, launches):
-    """Device time per call of fn(*args), `launches` calls rotating over
-    the argument tuples in `sets`, captured in one CUDA graph and replayed
-    after a warm-up replay: the calls run back to back on the card, with
-    no Python between them, timed with CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for args in sets:
-            fn(*args)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(launches):
-            fn(*sets[i % len(sets)])
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / launches
 
 
 def host_us(fn, args, calls=20):
@@ -227,14 +180,6 @@ def host_us(fn, args, calls=20):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / calls * 1e6
-
-
-def law_bytes(ng, n):
-    """Bytes the law must move: 15 float32 (ng, N) input planes, friction,
-    the per-sphere constants, 7 float32 output planes and the 1-byte
-    active mask."""
-    return (15 * ng * n * 4 + n * 4 + ng * (9 * 4 + 4)
-            + 7 * ng * n * 4 + ng * n)
 
 
 def kernel_phase(device):
@@ -273,14 +218,12 @@ def kernel_phase(device):
                   for _ in range(N_SETS)]
         copy_ms = device_ms(lambda dst, src: dst.copy_(src), copies,
                             TIMED_LAUNCHES)
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        flop_ms = LAW_FLOPS_PER_ELEM * ng * n / FP32_FLOPS * 1e3
-        bound_ms = max(byte_ms, flop_ms)
+        bound_ms, bound_by = law_bound_ms(ng, n)
         row = dict(ng=ng, nb=nb, n=n, sorted=ordered, max_abs_err=err,
                    ms=ms, warm_ms=warm_ms, copy_ms=copy_ms,
                    plain_ms=plain_ms, host_us=wrapper_us,
                    bound_ms=bound_ms,
-                   bound_by="bytes" if byte_ms >= flop_ms else "operations",
+                   bound_by=bound_by,
                    bytes=nbytes, gbps=nbytes / ms / 1e6,
                    share_of_bound=bound_ms / ms)
         log(f"kernel contact_law {tag}: max_abs_err={err:.3g} ms={ms:.5f} "
@@ -425,17 +368,6 @@ def slice_phase(device, profile):
         results.append(dict(profile_step_s=step_s, device_busy_s=dev_us / 1e6,
                             contact_law_in_step_ms=law_ms))
     return results, total_launches
-
-
-def device_kernel_rows(events):
-    """The device kernels of a profile's key_averages(), longest first: the
-    aten:: rows repeat their kernels' time, and so do the annotation
-    ranges that the optimizer puts on the device timeline."""
-    rows = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
-    return sorted(rows, key=lambda e: -e.self_device_time_total)
 
 
 def model_snapshot(model):
@@ -1445,6 +1377,280 @@ def cold_phase(device, n=1024):
                 card_vs_cpu_max_abs_err=err)
 
 
+HARNESS_TASKS = (("widowGo1", NUM_ENVS, NUM_STEPS),
+                 ("go1", LEGGED_ENVS, LEGGED_STEPS),
+                 ("go1_flat_lstm", LEGGED_ENVS, LEGGED_STEPS))
+HARNESS_WARMUP, HARNESS_ITERS, HARNESS_REPEATS = 1, 1, 2
+
+
+def harness_phase(extra_args=()):
+    """Phase 18: the benchmark harness (dwbc_tpu_torch/bench.py) in process
+    at full width on HARNESS_TASKS; its JSON line parsed and checked key by
+    key: (line, kernel launches)."""
+    import contextlib
+    import io
+    from dwbc_tpu_torch import bench
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    contact_law.launches = 0
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        bench.main(["--task", ",".join(t for t, _, _ in HARNESS_TASKS),
+                    "--warmup", str(HARNESS_WARMUP), "--iters",
+                    str(HARNESS_ITERS), "--repeats", str(HARNESS_REPEATS),
+                    *extra_args])
+    wall = time.time() - t0
+    launches = contact_law.launches
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if line["device"]["name"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"harness device {line['device']} is not "
+                             f"{torch.cuda.get_device_name(0)}")
+    if line["device"]["platform"] != "gpu" or not line["device"][
+            "power_limit_w"]:
+        raise AssertionError(f"harness device {line['device']}")
+    keys = {"metric", "value", "unit", "num_envs", "collection_time_s",
+            "learn_time_s", "iters_per_s", "runs", "min", "max", "samples",
+            "state_bytes_per_env_step", "collect_hbm_gbps",
+            "hbm_util_vs_peak", "model_flops_per_iter", "mfu_vs_f32_peak",
+            "contact_kernel"}
+    expect = 0
+    for (task, n, steps), t in zip(HARNESS_TASKS, line["tasks"]):
+        missing = keys - set(t)
+        nulls = [k for k in keys if t.get(k) is None]
+        k = t["contact_kernel"]
+        nulls += [f"contact_kernel.{x}" for x, v in k.items() if v is None]
+        if t["task"] != task or missing or nulls:
+            raise AssertionError(f"harness {t['task']}: missing {missing}, "
+                                 f"null {nulls}")
+        if (t["num_envs"], t["steps"], t["samples"]) != (n, steps,
+                                                          HARNESS_REPEATS):
+            raise AssertionError(f"harness {task}: {t['num_envs']} envs, "
+                                 f"{t['steps']} steps, {t['samples']} runs")
+        if t["value"] != float(np.median(t["runs"])) or not all(
+                math.isfinite(x) and x > 0 for x in t["runs"]):
+            raise AssertionError(f"harness {task}: runs {t['runs']}, value "
+                                 f"{t['value']}")
+        if k["launches_per_iter"] != steps * DECIMATION:
+            raise AssertionError(f"harness {task}: {k['launches_per_iter']} "
+                                 f"launches per iteration")
+        shape = tuple(k["shape"])
+        if shape not in {s[:3] for s in KERNEL_SHAPES}:
+            raise AssertionError(f"harness {task}: no kernel check at "
+                                 f"(ng, nb, N) = {shape}")
+        expect += ((HARNESS_WARMUP + HARNESS_ITERS * HARNESS_REPEATS)
+                   * steps * DECIMATION)
+        log(f"harness {task} x {n} envs x {steps} steps: total_fps median "
+            f"{t['value']:.0f} over {t['runs']} (min {t['min']:.0f}, max "
+            f"{t['max']:.0f}), collect {t['collection_time_s']:.3f} s, learn "
+            f"{t['learn_time_s']:.4f} s; {t['state_bytes_per_env_step']:.1f} "
+            f"state bytes per env step, {t['collect_hbm_gbps']:.3f} GB/s = "
+            f"{t['hbm_util_vs_peak']:.3e} of HBM; "
+            f"{t['model_flops_per_iter']:.4g} model flops per iteration = "
+            f"{t['mfu_vs_f32_peak']:.3e} of f32; kernel {shape} "
+            f"{k['ms']:.5f} ms ({k['share_of_bound']:.1%} of "
+            f"{k['bound_ms']:.5f} ms), plain {k['plain_ms']:.4f} ms, "
+            f"{k['launches_per_iter']:.0f} launches per iteration")
+    if launches != expect:
+        raise AssertionError(f"the harness launched the contact kernel "
+                             f"{launches} times, expected {expect}")
+    log(f"harness: bench.main in process, {launches} launches, {wall:.1f} s; "
+        f"device {line['device']}")
+    return dict(line=line, wall_s=wall, launches=launches), launches
+
+
+def _cholesky_solve_spd(A, b):
+    """solve_spd as the port had it before its pivot floor: LAPACK /
+    cuSOLVER Cholesky, which raises on a matrix that is not positive
+    definite. Only timed here, beside the current one."""
+    L = torch.linalg.cholesky(A)
+    if b.dim() == A.dim():
+        return torch.cholesky_solve(b, L)
+    return torch.cholesky_solve(b[..., None], L)[..., 0]
+
+
+def repairs_phase(device, n=VARIANT_ENVS):
+    """Phase 19: the three repairs on the card. solve_spd on SPD, zero-pivot
+    and NaN matrices; aba with a massless env (IA[0] = 0); the heightfield
+    at NaN coordinates; one widowGo1_adaptive env step at n envs with one
+    env's velocities NaN (bad, reset, the others finite); and the wall
+    time of one _osc_target call at n envs with the current solve_spd and
+    with the Cholesky one it replaced, in turns: (results, launches)."""
+    from dwbc_tpu_torch.core import maths, urdf
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    from dwbc_tpu_torch.sim import dynamics
+    from dwbc_tpu_torch.terrain import terrain
+    from dwbc_tpu_torch.utils import task_registry
+
+    rng = np.random.default_rng(17)
+    a = rng.normal(size=(3, 6, 6))
+    A = (a @ a.transpose(0, 2, 1) + 0.5 * np.eye(6)).astype(np.float32)
+    A[1] = np.diag([1.0, 1.0, 1.0, 1.0, 1.0, 0.0])
+    A[2, 4, 2] = np.nan
+    b = rng.normal(size=(3, 6, 4)).astype(np.float32)
+    cpu = maths.solve_spd(torch.as_tensor(A), torch.as_tensor(b))
+    got = maths.solve_spd(torch.as_tensor(A, device=device),
+                          torch.as_tensor(b, device=device)).cpu()
+    if not (torch.isnan(got[2]).all() and torch.isfinite(got[:2]).all()):
+        raise AssertionError("solve_spd on the card: NaN outside the NaN "
+                             "matrix or missing in it")
+    torch.testing.assert_close(got[:2], cpu[:2], rtol=1e-5, atol=0)
+
+    m = urdf.load_urdf(urdf.WIDOW_GO1_URDF, dof_order=urdf.WIDOW_GO1_DOF_ORDER,
+                       armature=0.01)
+    inert = [torch.as_tensor(np.repeat(np.asarray(x, np.float32)[None], 3, 0))
+             for x in (m.mass, m.com, m.inertia)]
+    inert[0][1] = 0.0
+    inert[2][1] = 0.0
+    q = torch.zeros((3, m.nq))
+    q[:, 2], q[:, 6] = 0.4, 1.0
+    qd = torch.as_tensor(0.3 * rng.normal(size=(3, m.nv)), dtype=torch.float32)
+    tau = torch.as_tensor(rng.normal(size=(3, m.nj)), dtype=torch.float32)
+    qdd = dynamics.aba(m, dynamics.Inertial(*(x.to(device) for x in inert)),
+                       q.to(device), qd.to(device), tau.to(device))[0].cpu()
+    if bool(torch.isfinite(qdd[1]).any()) or not bool(
+            torch.isfinite(qdd[[0, 2]]).all()):
+        raise AssertionError("aba with IA[0] = 0: non-finite outside the "
+                             "massless env, or finite in it")
+
+    hf = terrain.perlin_terrain(terrain.PerlinTerrainCfg(seed=1),
+                                device=device)
+    x = torch.tensor([float("nan"), 1.0, float("inf"), 2.0], device=device)
+    y = torch.tensor([0.5, float("nan"), 0.5, 1e20], device=device)
+    h, nrm = hf.sample_with_normal(x, y)
+    h3 = hf.sample_min3(x, y)
+    torch.cuda.synchronize()          # a device-side assert raises here
+    # a NaN coordinate gives a NaN height and its clamped cell's normal,
+    # as in the reference
+    if not (torch.isnan(h[:2]).all() and torch.isfinite(h[2:]).all()
+            and torch.isfinite(torch.stack(nrm)).all()
+            and torch.isfinite(h3).all()):
+        raise AssertionError(f"heightfield at non-finite points: {h}, {h3}")
+
+    env, _ = task_registry.make_env("widowGo1_adaptive", n, device=device)
+    check_kernel_shape(env)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    state, _ = env.reset(gen)
+    poisoned = 5
+    state.robot.qd[poisoned] = float("nan")
+    actions = torch.zeros((n, env.num_actions), device=device)
+    contact_law.launches = 0
+    state2, out = env.step(state, actions, 3.0)
+    launches = contact_law.launches
+    torch.cuda.synchronize()
+    others = torch.arange(n, device=device) != poisoned
+    if not bool(out.reset[poisoned]) or int(out.episode_stats["term_bad"]) < 1:
+        raise AssertionError("the NaN env was not marked bad and reset")
+    for name, t in (("q", state2.robot.q), ("qd", state2.robot.qd),
+                    ("obs", out.obs), ("rew", out.rew)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite {name} after the NaN env's "
+                                 f"reset")
+    if not bool(torch.isfinite(out.extras["target_arm_torques"][others])
+                .all()):
+        raise AssertionError("OSC targets non-finite outside the NaN env")
+    if launches != DECIMATION:
+        raise AssertionError(f"{launches} launches in one env step")
+
+    state, _ = env.reset(gen)
+    env._osc_target(state)
+    call_ms = {"pivot_floor": [], "cholesky": []}
+    current = maths.solve_spd
+    try:
+        for name in ("cholesky", "pivot_floor", "pivot_floor", "cholesky"):
+            maths.solve_spd = (_cholesky_solve_spd if name == "cholesky"
+                               else current)
+            env._osc_target(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                env._osc_target(state)
+            torch.cuda.synchronize()
+            call_ms[name].append((time.perf_counter() - t0) * 100.0)
+    finally:
+        maths.solve_spd = current
+    log(f"repairs: solve_spd (SPD, zero pivot, NaN) on the card, NaN only "
+        f"in the NaN matrix, vs CPU "
+        f"{float((got[:2] - cpu[:2]).abs().max()):.3g}; aba with IA[0] = 0 "
+        f"non-finite in that env only; heightfield at NaN / inf / 1e20 "
+        f"coordinates without a device assert; widowGo1_adaptive x {n} "
+        f"step with env {poisoned}'s qd NaN: bad, reset, the rest finite, "
+        f"{launches} launches; _osc_target x {n} envs ms per call, "
+        f"Cholesky {call_ms['cholesky']} vs pivot floor "
+        f"{call_ms['pivot_floor']}")
+    return dict(osc_target_call_ms=call_ms, num_envs=n), launches
+
+
+def learning_curve(iterations):
+    """`python3 chip_smoke.py --learning-curve N`: the train CLI's main()
+    for go1_flat at its 4096 envs for N iterations on the card, metrics
+    every 10 iterations under chiprun_out/logs/flat_go1/curve. Every env
+    whose physics step came out non-finite or faster than 15 m/s (what
+    the env's explosion guard marks `bad`, read at the step's physics
+    output) is counted. Prints Train/mean_reward, Train/dones and
+    Perf/total_fps every 50 iterations and the count."""
+    from dwbc_tpu_torch.runner import train
+    from dwbc_tpu_torch.utils import task_registry
+
+    blown = []
+    make_runner = task_registry.make_runner
+
+    def counting(task, **kw):
+        setup = kw.get("env_setup")
+
+        def env_setup(env):
+            if setup is not None:
+                setup(env)
+            physics = env.fused_step
+
+            def counted(*args, **kwargs):
+                out = physics(*args, **kwargs)
+                o = out if hasattr(out, "q") else out[0]   # (out, hidden)
+                bad = (~torch.isfinite(o.q).all(-1)
+                       | ~torch.isfinite(o.qd).all(-1)
+                       | (o.qd[:, :3].abs().amax(-1) > 15.0))
+                blown.append(bad.sum())
+                return out
+            env.fused_step = counted
+
+        kw["env_setup"] = env_setup
+        return make_runner(task, **kw)
+
+    task_registry.make_runner = counting
+    log_root = os.path.join(OUT_DIR, "logs")
+    shutil.rmtree(os.path.join(log_root, "flat_go1", "curve"),
+                  ignore_errors=True)
+    t0 = time.time()
+    try:
+        train.main(["--task", "go1_flat", "--max_iterations", str(iterations),
+                    "--log_root", log_root, "--log_every", "10",
+                    "--exptid", "curve"])
+    finally:
+        task_registry.make_runner = make_runner
+    wall = time.time() - t0
+    n_bad = int(torch.stack(blown).sum()) if blown else 0
+    rows = read_metrics(os.path.join(log_root, "flat_go1", "curve"),
+                        len(set(range(0, iterations, 10))
+                            | {iterations - 1}))
+    for r in rows:
+        if r["it"] % 50 == 0 or r["it"] == rows[-1]["it"]:
+            log(f"go1_flat it {r['it']}: Train/mean_reward "
+                f"{r['Train/mean_reward']:.4f}, Train/dones "
+                f"{r['Train/dones']:.6f}, Perf/total_fps "
+                f"{r['Perf/total_fps']}, collect "
+                f"{r['Perf/collection time']:.3f} s, learn "
+                f"{r['Perf/learning_time']:.4f} s")
+    log(f"go1_flat: {iterations} iterations in {wall:.1f} s, {n_bad} env "
+        f"steps with a non-finite or > 15 m/s physics state, over "
+        f"{len(blown)} env steps")
+    with open(os.path.join(OUT_DIR, "learning_curve.json"), "w") as f:
+        json.dump(dict(card=card().smi, iterations=iterations, wall_s=wall,
+                       bad_env_steps=n_bad, rows=rows), f, indent=1)
+
+
 def main():
     if sys.argv[1:2] == ["--two-rank-worker"]:
         sys.path.insert(0, ROOT)
@@ -1461,13 +1667,14 @@ def main():
               "runs the port on an NVIDIA GPU", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--learning-curve"]:
+        learning_curve(int(sys.argv[2]))
+        return
     from dwbc_tpu_torch.ops import contact_kernel
     from dwbc_tpu_torch.utils.device import resolve_device
 
     device = resolve_device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card().smi
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -1522,8 +1729,14 @@ def main():
     nccl, n = nccl_phase(legged[0]["fps"])
     launches += n
     cold = cold_phase(device)
-    log(f"new phases (export -> play, two ranks, NCCL, cold path): "
+    log(f"phases 14-17 (export -> play, two ranks, NCCL, cold path): "
         f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    harness, n = harness_phase()
+    launches += n
+    repairs, n = repairs_phase(device)
+    launches += n
+    log(f"phases 18-19 (harness, repairs): {time.time() - t0:.1f} s")
 
     drop_checkpoints()
     main_row = rows[0]
@@ -1550,7 +1763,7 @@ def main():
                        recurrent=recurrent,
                        recurrent_update_check_max_abs_err=recurrent_err,
                        deploy=deploy, two_rank=two_rank, nccl=nccl,
-                       cold_path=cold),
+                       cold_path=cold, harness=harness, repairs=repairs),
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run uses one card, whatever else the host holds

@@ -205,10 +205,36 @@ def rand_sqrt_uniform(gen: torch.Generator, shape, lo, hi,
 
 def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b for SPD matrices A (..., n, n) by a Cholesky
-    factorisation, batched over the leading dims (n is small, 6 for the
-    OSC task-space inertia). b is (..., n) or (..., n, k). Raises where a
-    matrix is not positive definite; the callers damp theirs."""
-    L = torch.linalg.cholesky(A)
-    if b.dim() == A.dim():
-        return torch.cholesky_solve(b, L)
-    return torch.cholesky_solve(b[..., None], L)[..., 0]
+    factorisation with every pivot floored at 1e-12, batched over the
+    leading dims (n is small, 6 for the OSC task-space inertia). b is
+    (..., n) or (..., n, k). The reference's algorithm
+    (dwbc_tpu/core/maths.py solve_spd) with its order of operations: a
+    singular matrix solves against its floored pivot and a NaN reaches
+    only its own matrix's solution. Nothing raises, and nothing waits
+    for the device."""
+    n = A.shape[-1]
+    vec = b.dim() == A.dim() - 1
+    # cols[j][..., r] is L[j + r, j]: column j of the factor, from the
+    # diagonal down
+    cols = []
+    for j in range(n):
+        s = A[..., j:, j]
+        for k in range(j):
+            s = s - cols[k][..., j - k:] * cols[k][..., j - k, None]
+        d = torch.sqrt(torch.clamp(s[..., :1], min=1e-12))
+        cols.append(torch.cat([d, s[..., 1:] / d], -1))
+    # L y = b, column by column: row i subtracts its terms in k order
+    s = b[..., None] if vec else b
+    y = []
+    for k in range(n):
+        y.append(s[..., 0, :] / cols[k][..., :1])
+        s = s[..., 1:, :] - cols[k][..., 1:, None] * y[k][..., None, :]
+    # L^T x = y, row by row
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - cols[i][..., k - i, None] * x[k]
+        x[i] = s / cols[i][..., :1]
+    x = torch.stack(x, -2)
+    return x[..., 0] if vec else x

@@ -175,8 +175,10 @@ def aba(model: RobotModel, inert: Inertial, q: torch.Tensor,
         pA[p] = pA[p] + _mv(Xf, pa)
 
     # pass 3: outward accelerations
-    # base spatial accel, body coords
-    a0 = torch.linalg.solve(IA[0], -pA[0][..., None])[..., 0]
+    # base spatial accel, body coords; a singular IA[0] gives non-finite
+    # values as jnp.linalg.solve does, with no raise and no host wait
+    a0 = torch.linalg.solve_ex(IA[0], -pA[0][..., None],
+                               check_errors=False)[0][..., 0]
     a = [a0]
     qdd_j = []
     for i in range(1, nb):

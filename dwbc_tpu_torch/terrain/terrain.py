@@ -27,6 +27,15 @@ from .. import native
 from ..utils.device import resolve_device
 
 
+def _saturating_index(g: torch.Tensor, size: int) -> torch.Tensor:
+    """Grid coordinate g truncated toward zero to an integer index the way
+    XLA's saturating float-to-int cast gives it after the same clamp to
+    [0, size - 2]: NaN to 0, +inf and values past int64's range to the
+    top, -inf to the bottom (a plain `.long()` gives int64's minimum for
+    all of them)."""
+    return torch.clamp(torch.nan_to_num(g, nan=0.0), -1.0, size - 1.0).long()
+
+
 class Heightfield(NamedTuple):
     """Device-side terrain: world (x, y) maps to grid (ix, iy) via
     ix = (x - origin_x) / cell."""
@@ -52,8 +61,10 @@ class Heightfield(NamedTuple):
         gy = (y - self.origin[1]) / self.cell
         gx = torch.clamp(gx, 0.0, H - 1.001)
         gy = torch.clamp(gy, 0.0, W - 1.001)
-        ix = torch.floor(gx).long()
-        iy = torch.floor(gy).long()
+        # a NaN coordinate passes the clamp: index cell 0 with it (as
+        # XLA's cast does) and keep it in fx, so its height is NaN
+        ix = torch.floor(torch.nan_to_num(gx, nan=0.0)).long()
+        iy = torch.floor(torch.nan_to_num(gy, nan=0.0)).long()
         fx = gx - ix
         fy = gy - iy
         h = self.height
@@ -83,8 +94,10 @@ class Heightfield(NamedTuple):
         coordinate truncated toward zero, then clamped (`sample` floors
         after its clamp)."""
         H, W = self.height.shape
-        ix = torch.clamp(((x - self.origin[0]) / self.cell).long(), 0, H - 2)
-        iy = torch.clamp(((y - self.origin[1]) / self.cell).long(), 0, W - 2)
+        ix = torch.clamp(_saturating_index((x - self.origin[0]) / self.cell,
+                                           H), 0, H - 2)
+        iy = torch.clamp(_saturating_index((y - self.origin[1]) / self.cell,
+                                           W), 0, W - 2)
         if self.min3 is not None:
             return self.min3[ix, iy]
         h = self.height

@@ -88,6 +88,44 @@ def test_aba_matches_jax(name):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("name", ["widowGo1", "box"])
+def test_aba_singular_base_block_matches_jax(name):
+    """A massless env (every body's mass and inertia zero, joint armature
+    0.01) makes the base's articulated inertia IA[0] exactly zero. The
+    port's batched `aba` must not raise there, and must be non-finite
+    exactly where the JAX `aba` (one jitted vmap over the envs and their
+    inertial parameters) is, and equal elsewhere (the test above's
+    tolerance)."""
+    jm, m = _models(name)
+    if name == "widowGo1":
+        jm = jurdf.load_urdf(jurdf.WIDOW_GO1_URDF,
+                             dof_order=jurdf.WIDOW_GO1_DOF_ORDER,
+                             armature=0.01)
+        m = urdf.load_urdf(urdf.WIDOW_GO1_URDF,
+                           dof_order=urdf.WIDOW_GO1_DOF_ORDER, armature=0.01)
+    rng = np.random.default_rng(1)
+    n = 3
+    q, qd = _rand_state(rng, m, n)
+    tau = rng.normal(size=(n, m.nj)).astype(np.float32)
+    inert = [np.repeat(np.asarray(x, np.float32)[None], n, 0)
+             for x in (m.mass, m.com, m.inertia)]
+    inert[0][1] = 0.0
+    inert[2][1] = 0.0
+    got, _ = dynamics.aba(m, dynamics.Inertial(*map(torch.as_tensor, inert)),
+                          torch.as_tensor(q), torch.as_tensor(qd),
+                          torch.as_tensor(tau))
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda i, *a: jdyn.aba(jm, jdyn.Inertial(*i), *a)[0]))(
+            tuple(map(jnp.asarray, inert)), jnp.asarray(q), jnp.asarray(qd),
+            jnp.asarray(tau)))
+    finite = np.isfinite(want)
+    assert not finite[1].any() and finite[[0, 2]].all()
+    np.testing.assert_array_equal(np.isfinite(got.numpy()), finite)
+    scale = np.abs(want[[0, 2]]).max(-1, keepdims=True)
+    np.testing.assert_allclose(got.numpy()[[0, 2]] / scale,
+                               want[[0, 2]] / scale, rtol=1e-5, atol=1e-5)
+
+
 def _base_q(pos=(0, 0, 0), nj=0):
     q = torch.zeros(7 + nj)
     q[0:3] = torch.as_tensor(pos, dtype=torch.float32)

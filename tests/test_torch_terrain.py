@@ -68,6 +68,48 @@ def test_heightfield_lookups_match(method):
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("method, min3", [
+    ("sample", False), ("sample_with_normal", False), ("sample_min3", False),
+    ("sample_min3", True)])
+def test_heightfield_lookups_at_non_finite_coordinates(method, min3):
+    """Every pair of NaN, +-inf, +-1e20, 3e9 and ordinary coordinates
+    inside and outside the grid: the port returns the JAX package's
+    values, NaN exactly where JAX gives NaN, and nothing raises (a NaN
+    used to reach the gather as int64's minimum). For sample_min3 the
+    cell indices are equal as well: heights that name their cell tell
+    them apart."""
+    rng = np.random.default_rng(4)
+    H, W = 10, 12
+    h = rng.normal(size=(H, W)).astype(np.float32)
+    if method == "sample_min3":
+        # heights falling along both axes: the min of a cell's three taps
+        # is h[i + 1, j], unique to the cell, so the value names the index
+        h = np.arange(H * W, dtype=np.float32).reshape(H, W)[::-1, ::-1].copy()
+    origin = (-1.0, -2.0)
+    jhf = jterr.Heightfield(height=jnp.asarray(h), cell=0.1, origin=origin)
+    hf = terr.heightfield_from_numpy(h, 0.1, origin, "cpu")
+    if min3:
+        jhf, hf = jhf.with_min3(), hf.with_min3()
+    vals = np.array([np.nan, np.inf, -np.inf, 1e20, -1e20, 3e9, 0.35, -0.45,
+                     -5.0, 100.0], np.float32)
+    x, y = np.repeat(vals, len(vals)), np.tile(vals, len(vals))
+    ref = getattr(jhf, method)(jnp.asarray(x), jnp.asarray(y))
+    out = getattr(hf, method)(torch.as_tensor(x), torch.as_tensor(y))
+    if method == "sample_with_normal":
+        ref, out = (ref[0], *ref[1]), (out[0], *out[1])
+    else:
+        ref, out = (ref,), (out,)
+    for r, o in zip(ref, out):
+        r = np.asarray(r)
+        np.testing.assert_array_equal(np.isnan(o.numpy()), np.isnan(r))
+        np.testing.assert_allclose(o.numpy(), r, rtol=1e-6, atol=1e-6)
+    nan_in = np.isnan(x) | np.isnan(y)
+    if method == "sample_min3":
+        assert not np.isnan(ref[0]).any()
+    else:
+        np.testing.assert_array_equal(np.isnan(np.asarray(ref[0])), nan_in)
+
+
 def _stairs(seed):
     """A small heightfield with steps (walls for the slope correction)
     and noise."""

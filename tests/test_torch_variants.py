@@ -144,6 +144,27 @@ def test_solve_spd_and_orientation_error_match():
         np.asarray(jmaths.yaw_quat(jnp.asarray(q1))), **TOL5)
 
 
+def test_solve_spd_singular_and_nan_match():
+    """A batch of SPD, exactly rank-deficient (a zero pivot, floored to
+    1e-12 in both packages) and NaN matrices, b as a vector and as k = 4
+    columns: no raise, the SPD and zero-pivot solutions equal to the JAX
+    package's at rtol 1e-5, NaN in both for the NaN matrix."""
+    rng = np.random.default_rng(6)
+    a = rng.normal(size=(4, 6, 6))
+    A = (a @ a.transpose(0, 2, 1) + 0.5 * np.eye(6)).astype(np.float32)
+    A[1] = np.diag([1.0, 1.0, 1.0, 1.0, 1.0, 0.0])
+    A[3, 4, 2] = np.nan          # below the diagonal: the factor reads it
+    for b in (rng.normal(size=(4, 6)), rng.normal(size=(4, 6, 4))):
+        b = b.astype(np.float32)
+        want = np.stack([np.asarray(jmaths.solve_spd(jnp.asarray(A[i]),
+                                                     jnp.asarray(b[i])))
+                         for i in range(4)])
+        got = maths.solve_spd(torch.as_tensor(A), torch.as_tensor(b)).numpy()
+        assert np.isnan(want[3]).all() and np.isnan(got[3]).all()
+        assert np.isfinite(want[:3]).all() and np.abs(want[1]).max() > 1e11
+        np.testing.assert_allclose(got[:3], want[:3], rtol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def adaptive_envs():
     """The adaptive variant on a plane in both packages, and one JAX state
@@ -207,6 +228,51 @@ def test_osc_target_matches(adaptive_envs):
     assert got.shape == (N, 6)
     assert np.abs(want).max() > 0.1
     np.testing.assert_allclose(got.numpy(), want, **TOL4)
+
+
+@pytest.fixture(scope="module")
+def poisoned(adaptive_envs):
+    """The lively state with env 2's robot.qd set to NaN, in both
+    packages."""
+    jenv, env, jstate, state = adaptive_envs
+    qd = np.array(jstate.robot.qd)
+    qd[2] = np.nan
+    jstate = jstate.replace(robot=jstate.robot.replace(qd=jnp.asarray(qd)))
+    return jenv, env, jstate, env_state_from_numpy(tree_np(jstate),
+                                                   device="cpu")
+
+
+def test_osc_target_with_a_nan_env_matches(poisoned):
+    """`_osc_target` from a state in which one env's velocities are NaN:
+    no raise, the other envs equal to the JAX package's (eager) at the
+    tolerance of test_osc_target_matches, the poisoned row non-finite in
+    both."""
+    jenv, env, jstate, state = poisoned
+    with jax.disable_jit():
+        want = np.asarray(jenv._osc_target(jstate))
+    got = env._osc_target(state).numpy()
+    assert not np.isfinite(want[2]).any() and not np.isfinite(got[2]).any()
+    rest = np.arange(N) != 2
+    assert np.isfinite(want[rest]).all()
+    np.testing.assert_allclose(got[rest], want[rest], **TOL4)
+
+
+def test_env_step_from_a_nan_env_resets_it(poisoned):
+    """One widowGo1_adaptive env step of the port from that state runs to
+    its end (the OSC solves, the terrain lookups and the contact law all
+    see the NaN), marks the poisoned env `bad` and resets it, and leaves
+    a finite state and observation."""
+    _, env, _, state = poisoned
+    actions = torch.as_tensor(
+        0.3 * np.random.default_rng(7).normal(size=(N, 24)), dtype=torch.float32)
+    state2, out = env.step(state, actions, 3.0)
+    assert bool(out.reset[2]) and int(out.episode_stats["term_bad"]) >= 1
+    assert int(out.num_resets) >= 1
+    for name, t in (("q", state2.robot.q), ("qd", state2.robot.qd),
+                    ("obs", out.obs), ("rew", out.rew),
+                    ("arm_rew", out.arm_rew)):
+        assert bool(torch.isfinite(t).all()), name
+    assert not bool(torch.isfinite(out.extras["target_arm_torques"][2]).any())
 
 
 def test_droop_compensation_matches(adaptive_envs):
