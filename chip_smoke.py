@@ -5,6 +5,10 @@
                                      # one env step and of the learn steps
                                      # to chiprun_out/
     python3 chip_smoke.py --learning-curve 301   # go1_flat training only
+    python3 chip_smoke.py --learning-curve 101 --task widowGo1 \
+        --num_envs 8192 --seed 1 --spawn_relative  # one task's curve,
+                                     # train CLI flags after --task T,
+                                     # held to the JAX runs (learning_curve)
 
 Phases, each of which raises on failure (exit code != 0):
   1. the card's name and power limit (nvidia-smi);
@@ -16,7 +20,9 @@ Phases, each of which raises on failure (exit code != 0):
      ragged 8192 + 77, one env, the kernel's limits (128 spheres, 32
      bodies), a geom->body map in random order, and the legged robots'
      shapes at 4096 envs on 13 bodies: 92 (go1), 76 (a1), 28 (anymal_b),
-     22 (anymal_c) and 5 (cassie) spheres. Per shape: its device
+     22 (anymal_c) and 5 (cassie) spheres, play's 5 envs, one rank's
+     2048 go1 envs, and widowGo1_flat's 84 x 21 x 4096 (its learning
+     curve's shape). Per shape: its device
      time per launch (a CUDA graph of TIMED_LAUNCHES launches rotating over
      N_SETS input sets, so that at 84 x 8192 each launch reads its inputs
      from HBM and not from the 50 MB L2), achieved GB/s and share of the
@@ -47,6 +53,11 @@ Phases, each of which raises on failure (exit code != 0):
      against the same calls on the CPU from the same state, trajectory
      (T = 8, N = 64) and permutation; parameters within rtol 1e-4 /
      atol 1e-5;
+  7b. bf16 update check: phase 7's `update` (same state, trajectory and
+     permutation) with the bf16 observation store on (ppo._BF16_OBS,
+     what DWBC_BF16_OBS=1 sets), card against CPU within phase 7's
+     tolerances; the store must move the result from the float32
+     update's by more than 1e-6;
   8. variant: make_runner("widowGo1_adaptive", 1024 envs), two
      iterations: OSC targets finite and not all zero in the trajectory,
      Loss/arm_torques_loss finite and positive, 320 launches; and one
@@ -126,6 +137,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -163,7 +175,9 @@ KERNEL_SHAPES = ((84, 21, NUM_ENVS, True), (84, 21, VARIANT_ENVS, True),
                  (5, 13, LEGGED_ENVS, True),
                  # play's widths, and one rank's half of go1's 4096 envs
                  (92, 13, PLAY_ENVS, True), (84, 21, PLAY_ENVS, True),
-                 (92, 13, LEGGED_ENVS // 2, True))
+                 (92, 13, LEGGED_ENVS // 2, True),
+                 # widowGo1_flat's learning curve
+                 (84, 21, LEGGED_ENVS, True))
 
 
 def log(msg):
@@ -182,11 +196,11 @@ def host_us(fn, args, calls=20):
     return (t1 - t0) / calls * 1e6
 
 
-def kernel_phase(device):
+def kernel_phase(device, shapes=KERNEL_SHAPES):
     from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.sim.contact import fused_terrain_law
     rows = []
-    for ng, nb, n, ordered in KERNEL_SHAPES:
+    for ng, nb, n, ordered in shapes:
         tag = (f"ng={ng} nb={nb} N={n} "
                f"{'sorted' if ordered else 'unsorted'} map")
         sets = [random_scene(n, ng, nb, seed=1000 * ng + n + i,
@@ -516,9 +530,9 @@ def train_phase(device, profile):
     return dict(iterations=iters, profiles=profiles), launches
 
 
-def update_check(device):
-    """One update and one update_dagger on the card against the CPU from
-    the same state, trajectory (T = 8, N = 64) and permutation."""
+def update_inputs():
+    """Phase 7's CPU model, trajectory (T = 8, N = 64), last values and
+    two permutations, made from seed 3."""
     from dwbc_tpu_torch.models.actor_critic import ActorCritic
     from dwbc_tpu_torch.rl import ppo
 
@@ -546,27 +560,78 @@ def update_check(device):
         current_arm_dof_pos=zeros6, current_arm_dof_vel=zeros6)
     last = f32(rng.normal(size=(N, 2)))
     perms = [torch.as_tensor(rng.permutation(T * N)) for _ in range(2)]
+    return cfg, cpu_model, traj, last, perms
 
-    results = {}
-    for name, dev in (("cpu", torch.device("cpu")), ("card", device)):
-        model = copy.deepcopy(cpu_model).to(dev)
-        state = ppo.PPOState(cfg, model)
-        tr = ppo.Transition(*(x.to(dev) for x in traj))
-        ret, adv = ppo.compute_gae(cfg, tr, last.to(dev))
-        ppo.update(cfg, state, tr, ret, adv, perm=perms[0].to(dev))
+
+def updated_params(cfg, cpu_model, traj, last, perms, dev, dagger=True):
+    """The parameters after one `update` (and `update_dagger` with
+    `dagger`) on `dev` from a copy of `cpu_model`, on the CPU."""
+    from dwbc_tpu_torch.rl import ppo
+
+    model = copy.deepcopy(cpu_model).to(dev)
+    state = ppo.PPOState(cfg, model)
+    tr = ppo.Transition(*(x.to(dev) for x in traj))
+    ret, adv = ppo.compute_gae(cfg, tr, last.to(dev))
+    ppo.update(cfg, state, tr, ret, adv, perm=perms[0].to(dev))
+    if dagger:
         ppo.update_dagger(cfg, state, tr, perm=perms[1].to(dev))
-        results[name] = {k: v.cpu() for k, v in model.state_dict().items()}
-    start = cpu_model.state_dict()
+    return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def compare_params(tag, got, want, start=None):
+    """Every parameter moved from `start` (if given) and `got` within
+    phase 7's tolerances of `want`; returns the largest absolute error."""
     err = 0.0
-    for k, want in results["cpu"].items():
-        if torch.equal(want, start[k]):
-            raise AssertionError(f"update check: {k} did not move")
-        torch.testing.assert_close(results["card"][k], want, rtol=1e-4,
-                                   atol=1e-5, msg=lambda m: f"{k}: {m}")
-        err = max(err, float((results["card"][k] - want).abs().max()))
-    log(f"update check: update + update_dagger, card vs CPU, T={T} N={N}, "
+    for k, w in want.items():
+        if start is not None and torch.equal(w, start[k]):
+            raise AssertionError(f"{tag}: {k} did not move")
+        torch.testing.assert_close(got[k], w, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m: f"{tag} {k}: {m}")
+        err = max(err, float((got[k] - w).abs().max()))
+    return err
+
+
+def update_check(device):
+    """One update and one update_dagger on the card against the CPU from
+    the same state, trajectory (T = 8, N = 64) and permutation."""
+    cfg, cpu_model, traj, last, perms = update_inputs()
+    cpu = updated_params(cfg, cpu_model, traj, last, perms, "cpu")
+    card_ = updated_params(cfg, cpu_model, traj, last, perms, device)
+    err = compare_params("update check", card_, cpu, cpu_model.state_dict())
+    log(f"update check: update + update_dagger, card vs CPU, T=8 N=64, "
         f"parameters max_abs_err={err:.3g}")
     return err
+
+
+def bf16_update_check(device):
+    """Phase 7's update with the bf16 observation store on (what
+    DWBC_BF16_OBS=1 sets at import), card against CPU, within phase 7's
+    tolerances; the same update with the store off must differ."""
+    from dwbc_tpu_torch.rl import ppo
+
+    cfg, cpu_model, traj, last, perms = update_inputs()
+    saved = ppo._BF16_OBS
+    try:
+        ppo._BF16_OBS = False
+        f32 = updated_params(cfg, cpu_model, traj, last, perms, "cpu",
+                             dagger=False)
+        ppo._BF16_OBS = True
+        cpu = updated_params(cfg, cpu_model, traj, last, perms, "cpu",
+                             dagger=False)
+        card_ = updated_params(cfg, cpu_model, traj, last, perms, device,
+                               dagger=False)
+    finally:
+        ppo._BF16_OBS = saved
+    # `update` leaves the history encoder as it is: no "moved" check
+    err = compare_params("bf16 update check", card_, cpu)
+    store_diff = max(float((cpu[k] - f32[k]).abs().max()) for k in cpu)
+    if not store_diff > 1e-6:
+        raise AssertionError(f"bf16 update check: the store changed the "
+                             f"parameters by only {store_diff:.3g}")
+    log(f"bf16 update check: update with the bf16 observation store, card "
+        f"vs CPU, T=8 N=64, parameters max_abs_err={err:.3g}; the store "
+        f"moves them by up to {store_diff:.3g} from the float32 update")
+    return err, store_diff
 
 
 def variant_train(device, n):
@@ -1584,18 +1649,28 @@ def repairs_phase(device, n=VARIANT_ENVS):
     return dict(osc_target_call_ms=call_ms, num_envs=n), launches
 
 
-def learning_curve(iterations):
-    """`python3 chip_smoke.py --learning-curve N`: the train CLI's main()
-    for go1_flat at its 4096 envs for N iterations on the card, metrics
-    every 10 iterations under chiprun_out/logs/flat_go1/curve. Every env
-    whose physics step came out non-finite or faster than 15 m/s (what
-    the env's explosion guard marks `bad`, read at the step's physics
-    output) is counted. Prints Train/mean_reward, Train/dones and
-    Perf/total_fps every 50 iterations and the count."""
+def learning_curve(iterations, task="go1_flat", train_args=()):
+    """`python3 chip_smoke.py --learning-curve N [--task T] [train CLI
+    flags]`: the train CLI's main() for task T (go1_flat when not given)
+    for N iterations on the card, metrics every 10 iterations under
+    chiprun_out/logs/<experiment>/curve[_seed<k>]. Before training, the
+    kernel is held against its plain version at the env's shape. Every
+    env whose physics step came out non-finite or faster than 15 m/s
+    (what the env's explosion guard marks `bad`, read at the step's
+    physics output) is counted. Prints the run every 50 iterations, then
+    each checkpoint of measure.CURVES[T] beside the JAX runs' values and
+    its band, and writes chiprun_out/learning_curve_<T>[_seed<k>].json.
+    Exits 1 if a value is out of its band (after writing everything)."""
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.runner import train
     from dwbc_tpu_torch.utils import task_registry
+    from dwbc_tpu_torch.utils.measure import CURVES, compare_curves, read_curve
 
+    seed = (train_args[train_args.index("--seed") + 1]
+            if "--seed" in train_args else "1")
+    suffix = "" if seed == "1" else f"_seed{seed}"
     blown = []
+    kernel_rows = []
     make_runner = task_registry.make_runner
 
     def counting(task, **kw):
@@ -1604,8 +1679,14 @@ def learning_curve(iterations):
         def env_setup(env):
             if setup is not None:
                 setup(env)
+            shape = check_kernel_shape(env)
+            kernel_rows.extend(kernel_phase(
+                env.device, [s for s in KERNEL_SHAPES if s[:3] == shape
+                             and s[3]]))
+            contact_law.launches = 0
             physics = env.fused_step
 
+            @functools.wraps(physics)   # keeps its attributes (.fk)
             def counted(*args, **kwargs):
                 out = physics(*args, **kwargs)
                 o = out if hasattr(out, "q") else out[0]   # (out, hidden)
@@ -1621,34 +1702,70 @@ def learning_curve(iterations):
 
     task_registry.make_runner = counting
     log_root = os.path.join(OUT_DIR, "logs")
-    shutil.rmtree(os.path.join(log_root, "flat_go1", "curve"),
-                  ignore_errors=True)
+    run_dir = os.path.join(log_root, task_registry.TASKS[task].experiment_name,
+                           "curve" + suffix)
+    shutil.rmtree(run_dir, ignore_errors=True)
     t0 = time.time()
     try:
-        train.main(["--task", "go1_flat", "--max_iterations", str(iterations),
+        train.main(["--task", task, "--max_iterations", str(iterations),
                     "--log_root", log_root, "--log_every", "10",
-                    "--exptid", "curve"])
+                    "--exptid", os.path.basename(run_dir), *train_args])
     finally:
         task_registry.make_runner = make_runner
+    torch.cuda.synchronize()
     wall = time.time() - t0
+    launches = contact_law.launches
     n_bad = int(torch.stack(blown).sum()) if blown else 0
-    rows = read_metrics(os.path.join(log_root, "flat_go1", "curve"),
-                        len(set(range(0, iterations, 10))
-                            | {iterations - 1}))
+    curve = read_curve(os.path.join(run_dir, "metrics.jsonl"))
+    rows = [curve[it] for it in sorted(curve)]
+    lacking = sorted(set(range(0, iterations, 10)) - set(curve))
+    bad = [(r["it"], k) for r in rows for k, v in r.items()
+           if not math.isfinite(v)]
+    if lacking or bad:
+        raise AssertionError(f"{task} curve: iterations {lacking} not "
+                             f"logged; non-finite values {bad}")
     for r in rows:
         if r["it"] % 50 == 0 or r["it"] == rows[-1]["it"]:
-            log(f"go1_flat it {r['it']}: Train/mean_reward "
-                f"{r['Train/mean_reward']:.4f}, Train/dones "
-                f"{r['Train/dones']:.6f}, Perf/total_fps "
-                f"{r['Perf/total_fps']}, collect "
-                f"{r['Perf/collection time']:.3f} s, learn "
-                f"{r['Perf/learning_time']:.4f} s")
-    log(f"go1_flat: {iterations} iterations in {wall:.1f} s, {n_bad} env "
-        f"steps with a non-finite or > 15 m/s physics state, over "
-        f"{len(blown)} env steps")
-    with open(os.path.join(OUT_DIR, "learning_curve.json"), "w") as f:
-        json.dump(dict(card=card().smi, iterations=iterations, wall_s=wall,
-                       bad_env_steps=n_bad, rows=rows), f, indent=1)
+            log(f"{task} it {r['it']}: " + ", ".join(
+                f"{k} {r[k]:.4f}" for k in (
+                    "Train/mean_reward", "Train/mean_episode_length",
+                    "Train/dones", "Policy/leg_mean_noise_std",
+                    "Perf/total_fps") if k in r))
+    log(f"{task}: {iterations} iterations in {wall:.1f} s, {launches} "
+        f"kernel launches, {n_bad} env steps with a non-finite or > 15 m/s "
+        f"physics state, over {len(blown)} env steps")
+    verdicts = []
+    spec = CURVES.get(task)
+    for checkpoints, keys in (spec["checks"] if spec else ()):
+        verdicts += compare_curves(
+            rows, [os.path.join(ROOT, p) for p in spec["runs"]],
+            [c for c in checkpoints if c < iterations], keys)
+    for v in verdicts:
+        if v["missing"]:
+            where = [m if m == "port" else os.path.relpath(m, ROOT)
+                     for m in v["missing"]]
+            log(f"{task} it {v['it']} {v['key']}: missing in "
+                f"{', '.join(where)}: OUT")
+            continue
+        what = (f" ({v['channel']}, JAX {'/'.join(v['jax_channels'])})"
+                if "channel" in v else "")
+        log(f"{task} it {v['it']} {v['key']}{what}: port {v['port']:.4f}, "
+            f"JAX {', '.join(f'{x:.4f}' for x in v['jax'])}, band "
+            f"[{v['band'][0]:.4f}, {v['band'][1]:.4f}]: "
+            f"{'in' if v['ok'] else 'OUT'}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"learning_curve_{task}{suffix}.json"),
+              "w") as f:
+        json.dump(dict(card=card().smi, task=task, train_args=list(train_args),
+                       iterations=iterations, wall_s=wall,
+                       kernel_launches=launches, bad_env_steps=n_bad,
+                       env_steps=len(blown), kernel_rows=kernel_rows,
+                       verdicts=verdicts, rows=rows), f, indent=1)
+    out = [v for v in verdicts if not v["ok"]]
+    log(f"{task}: {len(verdicts) - len(out)} of {len(verdicts)} checks in "
+        f"their bands")
+    if out:
+        sys.exit(1)
 
 
 def main():
@@ -1668,7 +1785,11 @@ def main():
         sys.exit(1)
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--learning-curve"]:
-        learning_curve(int(sys.argv[2]))
+        rest = sys.argv[3:]
+        task = "go1_flat"
+        if rest[:1] == ["--task"]:
+            task, rest = rest[1], rest[2:]
+        learning_curve(int(sys.argv[2]), task, rest)
         return
     from dwbc_tpu_torch.ops import contact_kernel
     from dwbc_tpu_torch.utils.device import resolve_device
@@ -1694,6 +1815,7 @@ def main():
     training, n = train_phase(device, profile)
     launches += n
     update_err = update_check(device)
+    bf16_err, bf16_store_diff = bf16_update_check(device)
     variants = []
     for width in (VARIANT_ENVS, NUM_ENVS) if profile else (VARIANT_ENVS,):
         variant, n = variant_train(device, width)
@@ -1757,6 +1879,9 @@ def main():
         json.dump(dict(card=smi, kernels=kernels, kernel_rows=rows,
                        collects=collects, training=training,
                        update_check_max_abs_err=update_err,
+                       bf16_update_check=dict(
+                           max_abs_err=bf16_err,
+                           store_vs_float32_max_abs_diff=bf16_store_diff),
                        variants=variants, osc_check_max_abs_err=osc_err,
                        osc_target_call_ms=osc_ms, legged=legged,
                        legged_step_check_max_abs_err=legged_step_err,

@@ -14,7 +14,8 @@ with the flax model's layout at the public boundary: observations are
   * Critic: prop+priv input, shared backbone, leg/arm value heads;
   * learnable per-joint std;
   * per-head (leg/arm) log-prob and entropy sums (reference :326-345).
-interop.actor_critic_from_flax loads a flax parameter tree.
+interop.actor_critic_from_flax loads a flax parameter tree. A fresh model
+is initialised as flax initialises the JAX one (`flax_init_`).
 """
 
 from __future__ import annotations
@@ -35,6 +36,27 @@ _ACT = {
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
 }
+
+# the standard deviation of a standard normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module) -> nn.Module:
+    """Initialise every nn.Linear and nn.Conv1d of `module` as flax
+    initialises nn.Dense and nn.Conv by default (lecun_normal): weights
+    from a normal truncated at two standard deviations with variance
+    1 / fan_in, biases zero. torch's own default (uniform weights with a
+    third of that variance, uniform biases) starts training elsewhere
+    than the JAX package does."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv1d)):
+            std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    return module
+
 
 # (kernel, stride) of the two or three VALID convs per history length,
 # output channels (2*ch, ch[, ch]) — reference :53-69
@@ -185,6 +207,7 @@ class ActorCritic(nn.Module):
                              leg_head_dims, arm_head_dims, activation)
         self.init_std = tuple(init_std)
         self.std = nn.Parameter(torch.tensor(init_std, dtype=torch.float32))
+        flax_init_(self)
 
     def forward(self, obs, hist_encoding: bool = False):
         """(action mean, std, value)."""

@@ -14,6 +14,9 @@ JAX model uses, so that interop.recurrent_from_flax is a plain copy:
   * GRU (flax GRUCell): r, z, n; the input side carries the bias of all
     three, the hidden side has none for r and z and its own for n, inside
     r * (W_hn h + b_hn); the carry is h.
+A fresh model is initialised as flax initialises the cells and the MLPs:
+lecun_normal input and MLP kernels (`actor_critic.flax_init_`), an
+orthogonal recurrent kernel per gate, zero biases.
 """
 
 from __future__ import annotations
@@ -23,7 +26,15 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .actor_critic import _ACT, _mlp
+from .actor_critic import _ACT, _mlp, flax_init_
+
+
+@torch.no_grad()
+def _orthogonal_gates_(layer: nn.Linear, gates: int):
+    """Each gate's (hidden, hidden) block of a recurrent kernel drawn
+    orthogonal, as flax's cells draw one recurrent kernel per gate."""
+    for block in layer.weight.chunk(gates, 0):
+        nn.init.orthogonal_(block)
 
 
 class LSTMCell(nn.Module):
@@ -31,6 +42,9 @@ class LSTMCell(nn.Module):
         super().__init__()
         self.wi = nn.Linear(num_in, 4 * hidden, bias=False)
         self.wh = nn.Linear(hidden, 4 * hidden)
+
+    def init_recurrent_(self):
+        _orthogonal_gates_(self.wh, 4)
 
     def forward(self, carry, x):
         c, h = carry
@@ -46,6 +60,10 @@ class GRUCell(nn.Module):
         self.wi = nn.Linear(num_in, 3 * hidden)
         self.wh = nn.Linear(hidden, 2 * hidden, bias=False)
         self.whn = nn.Linear(hidden, hidden)
+
+    def init_recurrent_(self):
+        _orthogonal_gates_(self.wh, 2)
+        _orthogonal_gates_(self.whn, 1)
 
     def forward(self, h, x):
         ir, iz, i_n = torch.chunk(self.wi(x), 3, dim=-1)
@@ -87,6 +105,9 @@ class ActorCriticRecurrent(nn.Module):
                                   tuple(critic_hidden_dims) + (1,))
         self.std = nn.Parameter(torch.full((num_actions,),
                                            float(init_noise_std)))
+        flax_init_(self)
+        self.memory_a.init_recurrent_()
+        self.memory_c.init_recurrent_()
 
     def initial_state(self, batch: int):
         """Zero carry on the parameters' device: ((c, h), (c, h)) for the

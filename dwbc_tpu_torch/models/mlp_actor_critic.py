@@ -16,7 +16,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .actor_critic import _ACT, _mlp
+from .actor_critic import _ACT, _mlp, flax_init_
 
 
 class MlpActorCritic(nn.Module):
@@ -31,6 +31,7 @@ class MlpActorCritic(nn.Module):
         self.critic_layers = _mlp(num_obs, tuple(critic_hidden_dims) + (1,))
         self.std = nn.Parameter(torch.full((num_actions,),
                                            float(init_noise_std)))
+        flax_init_(self)
 
     def _head(self, layers, x):
         for layer in layers[:-1]:

@@ -25,14 +25,16 @@ gradients and the loss statistics (the KL among them) are averaged over
 the ranks in one all-reduce, so the adaptive learning rate, the clip and
 the Adam step are the same on every rank and the replicas stay equal.
 `compute_gae` then normalises the advantages with the global mean and
-population std. The JAX package's bf16 observation store
-(DWBC_BF16_OBS, off by default) is not ported.
+population std. With DWBC_BF16_OBS=1 in the environment at import,
+`update` stores the permuted observation batch as bfloat16 and casts
+each minibatch back to float32 where it is read, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -40,6 +42,9 @@ import torch
 
 from ..models import actor_critic as ac_lib
 from ..parallel import distributed as dist
+
+# see update(): bf16 storage of the permuted observations
+_BF16_OBS = os.environ.get("DWBC_BF16_OBS") == "1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,6 +303,11 @@ def update(cfg: PPOConfig, state: PPOState, traj: Transition,
 
     f = {k: flat(v) for k, v in traj._asdict().items()
          if k in ("obs", "actions", "log_probs", "values", "mu", "sigma")}
+    if _BF16_OBS:
+        # every minibatch step re-reads the permuted observations; stored
+        # bf16 they move half the bytes. Only the stored values are
+        # rounded: the networks compute in float32 (cast on read).
+        f["obs"] = f["obs"].to(torch.bfloat16)
     f_returns = flat(returns)
     f_adv = flat(advantages)
     mix = mixing_ratio(cfg, state.counter)
@@ -311,7 +321,7 @@ def update(cfg: PPOConfig, state: PPOState, traj: Transition,
     adaptive_lr = cfg.desired_kl is not None and cfg.schedule == "adaptive"
 
     def loss_fn(sl):
-        obs = f["obs"][sl]
+        obs = f["obs"][sl].float()
         mean = model.act_mean(obs, False)
         std = model.std
         logp = logp_heads(cfg, f["actions"][sl], mean, std)

@@ -1,7 +1,9 @@
 """Device measurement helpers shared by the benchmark harness
 (dwbc_tpu_torch/bench.py) and chip_smoke.py: the card's published peaks
 and its nvidia-smi identity, the contact law's bytes, operations and
-bound, random contact-law inputs, and CUDA-graph timing of a call.
+bound, random contact-law inputs, and CUDA-graph timing of a call; and
+the comparison of a learning curve with the JAX package's committed runs
+(`compare_curves`, `CURVES`), which reads only their metrics.jsonl.
 
 Everything that times or queries the card raises without one; nothing
 here falls back to the CPU.
@@ -9,8 +11,10 @@ here falls back to the CPU.
 
 from __future__ import annotations
 
+import json
+import math
 import subprocess
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -136,3 +140,126 @@ def device_kernel_rows(events):
             and not getattr(e, "is_user_annotation", False)
             and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
     return sorted(rows, key=lambda e: -e.self_device_time_total)
+
+
+# ---------------------------------------------------------------------------
+# learning curves against the JAX package's runs
+
+
+TERM_KEYS = ("Episode/term_roll", "Episode/term_pitch", "Episode/term_z",
+             "Episode/term_timeout", "Episode/term_bad")
+TERMS = "Episode/term_*"   # the key of the leading-channel band
+LEN = "Train/mean_episode_length"
+REW = "Train/mean_reward"
+
+
+class Band(NamedTuple):
+    """How the port's value at a checkpoint is held against the JAX runs'
+    values there (their min and max):
+      scale     [lo x min, hi x max], of |values| with `magnitude`;
+      offset    [min - lo, max + lo];
+      at_least  [lo, inf), whatever the JAX runs logged;
+      leading   (key TERMS) the channel of TERM_KEYS with the largest share
+                must lead in every JAX run too, and its share lie in
+                [min - lo, max + lo] of theirs."""
+
+    kind: str
+    lo: float
+    hi: float = math.inf
+    magnitude: bool = False
+
+
+def read_curve(path) -> Dict[int, dict]:
+    """A metrics.jsonl as {iteration: row}, the first line of each
+    iteration kept (a resumed JAX run logs some iterations twice)."""
+    rows = {}
+    with open(path) as f:
+        for line in f:
+            if line.strip():
+                row = json.loads(line)
+                rows.setdefault(int(row["it"]), row)
+    return rows
+
+
+def _leading(row):
+    """(channel, share) of the largest termination share of a row."""
+    return max(((k, row[k]) for k in TERM_KEYS), key=lambda kv: kv[1])
+
+
+def compare_curves(port_rows, jax_runs: Sequence[str],
+                   checkpoints: Sequence[int], keys: Dict[str, Band]):
+    """The port's curve (its metrics.jsonl rows) against the JAX runs'
+    metrics.jsonl files (paths) at each checkpoint and key. One dict per
+    (checkpoint, key): it, key, port, jax (one value per run), band [lo,
+    hi], ok, and `missing` (where the port or a run lacks the iteration
+    or the key: reported, never skipped; ok is then False)."""
+    port = {}
+    for row in port_rows:
+        port.setdefault(int(row["it"]), row)
+    runs = {path: read_curve(path) for path in jax_runs}
+    out = []
+    for it in checkpoints:
+        for key, band in keys.items():
+            need = TERM_KEYS if band.kind == "leading" else (key,)
+            missing = []
+            if it not in port or any(k not in port[it] for k in need):
+                missing.append("port")
+            missing += [path for path, rows in runs.items()
+                        if it not in rows or any(k not in rows[it]
+                                                 for k in need)]
+            entry = dict(it=it, key=key, kind=band.kind, port=None,
+                         jax=None, band=None, ok=False, missing=missing)
+            out.append(entry)
+            if missing:
+                continue
+            jrows = [rows[it] for rows in runs.values()]
+            if band.kind == "leading":
+                channel, value = _leading(port[it])
+                leads = sorted({_leading(r)[0] for r in jrows})
+                jvals = [r[channel] for r in jrows]
+                lo, hi = min(jvals) - band.lo, max(jvals) + band.lo
+                entry.update(port=value, jax=jvals, band=[lo, hi],
+                             channel=channel, jax_channels=leads,
+                             ok=bool(leads == [channel]
+                                     and lo <= value <= hi))
+                continue
+            value = port[it][key]
+            jvals = [r[key] for r in jrows]
+            if band.kind == "at_least":
+                lo, hi = band.lo, band.hi
+            elif band.kind == "offset":
+                lo, hi = min(jvals) - band.lo, max(jvals) + band.lo
+            elif band.kind == "scale":
+                mags = [abs(v) for v in jvals] if band.magnitude else jvals
+                lo, hi = band.lo * min(mags), band.hi * max(mags)
+            else:
+                raise ValueError(f"unknown band kind {band.kind!r}")
+            checked = abs(value) if band.magnitude else value
+            entry.update(port=value, jax=jvals, band=[lo, hi],
+                         ok=bool(lo <= checked <= hi))
+    return out
+
+
+# The JAX runs and bands each task's curve is held to (paths from the
+# repository's root): a list of (checkpoints, {key: Band}).
+_SCALE = Band("scale", 0.8, 1.25)
+CURVES = {
+    "widowGo1": dict(
+        runs=tuple(f"logs/rough_widowGo1/{r}/metrics.jsonl" for r in
+                   ("r4_widow_fresh", "r5_widow_marathon", "r5_flag2k")),
+        checks=[((10, 20, 30, 50, 100), {
+            LEN: _SCALE, REW: Band("scale", 0.8, 1.25, magnitude=True),
+            TERMS: Band("leading", 0.10),
+            "Policy/leg_mean_noise_std": Band("offset", 0.05)})]),
+    "widowGo1_flat": dict(
+        runs=("logs/flat_widowGo1/r5_widowflat/metrics.jsonl",),
+        checks=[((10, 50, 100), {
+            LEN: _SCALE, "Episode/term_z": Band("at_least", 0.95)})]),
+    "go1_flat_lstm": dict(
+        runs=("logs/flat_go1_lstm/r5_lstm/metrics.jsonl",),
+        checks=[((200, 300), {REW: Band("scale", 0.5, 2.0)}),
+                ((300,), {LEN: Band("at_least", 900.0)})]),
+    "go1_flat": dict(
+        runs=("logs/flat_go1/r2_go1flat_v2/metrics.jsonl",),
+        checks=[((200, 300), {REW: Band("scale", 0.5, 2.0)})]),
+}

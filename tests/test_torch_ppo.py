@@ -11,7 +11,9 @@ Tolerances: schedules and entropy 1e-7; GAE rtol 1e-6 (atol 1e-6) at T = 4,
 N = 6, where the population and the unbiased std differ by 1 %; after an
 update every parameter rtol 1e-4 / atol 1e-5 and every metric rtol 1e-5 /
 atol 1e-6; the learning rate exact; parameters the DAgger phase does not
-train bit-equal.
+train bit-equal. The bf16 observation store (DWBC_BF16_OBS) is switched on
+by patching both packages' `_BF16_OBS`; the JAX package reads its flag
+while tracing, so the JAX caches are cleared around those calls.
 """
 
 import numpy as np
@@ -334,3 +336,101 @@ def test_enforce_min_std(floor_len, clamped):
     np.testing.assert_array_equal(model.std.detach().numpy(),
                                   np.asarray(want["params"]["std"]))
     assert (not np.array_equal(model.std.detach().numpy(), std)) == clamped
+
+
+# ---------------------------------------------------------------------------
+# the bf16 observation store (DWBC_BF16_OBS)
+
+
+@pytest.fixture(scope="module")
+def bf16_updates():
+    """first_update's case with the bf16 store on in both packages, and the
+    port's update with the store off from the same start."""
+    jmodel, params, model, num_obs = make_models()
+    interop.actor_critic_from_flax(np_tree(params), model)
+    model_f32 = ac.ActorCritic()
+    interop.actor_critic_from_flax(np_tree(params), model_f32)
+    traj_np = make_traj(jmodel, params, num_obs, T, N, seed=1)
+    jstate = jppo.init_state(jppo.PPOConfig(**SMALL), params)
+    state = ppo.PPOState(ppo.PPOConfig(**SMALL), model)
+    key = jax.random.PRNGKey(11)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jppo, "_BF16_OBS", True)
+        mp.setattr(ppo, "_BF16_OBS", True)
+        jax.clear_caches()
+        try:
+            jstate2, jmetrics, metrics = run_both(
+                SMALL, traj_np, jmodel, jstate, state, key)
+        finally:
+            jax.clear_caches()
+    state_f32 = ppo.PPOState(ppo.PPOConfig(**SMALL), model_f32)
+    cfg = ppo.PPOConfig(**SMALL)
+    ttraj = both(traj_np)[1]
+    last = np.random.default_rng(5).normal(size=(N, 2)).astype(np.float32)
+    ret, adv = ppo.compute_gae(cfg, ttraj, torch.as_tensor(last))
+    perm = torch.as_tensor(np.asarray(jax.random.permutation(key, T * N)))
+    ppo.update(cfg, state_f32, ttraj, ret, adv, perm=perm)
+    return jstate2, jmetrics, state, metrics, state_f32
+
+
+def test_update_matches_with_bf16_obs_store(bf16_updates):
+    jstate2, jmetrics, state, metrics, _ = bf16_updates
+    assert_params_match(jstate2.params, state.model, **PARAM_TOL)
+    assert_metrics_match(jmetrics, metrics)
+    assert state.counter == int(jstate2.counter) == 1
+    assert state.learning_rate == float(jstate2.learning_rate)
+
+
+def test_bf16_obs_store_changes_the_update(bf16_updates):
+    """The store rounds the observations the update reads: its result
+    differs from the float32 update's, so the match above means
+    something."""
+    _, _, state, _, state_f32 = bf16_updates
+    diff = max(float((a - b).detach().abs().max()) for a, b in
+               zip(state.model.parameters(), state_f32.model.parameters()))
+    assert diff > 1e-6
+
+
+def test_update_dagger_ignores_bf16_obs_store(monkeypatch):
+    """The DAgger phase reads float32 observations with the flag on, as in
+    the JAX package: bit-equal parameters and loss."""
+    jmodel, params, _, num_obs = make_models(seed=5)
+    traj_np = make_traj(jmodel, params, num_obs, T, N, seed=7)
+    perm = torch.as_tensor(np.random.default_rng(2).permutation(T * N))
+    cfg = ppo.PPOConfig(**SMALL)
+    results = []
+    for store in (False, True):
+        monkeypatch.setattr(ppo, "_BF16_OBS", store)
+        model = ac.ActorCritic()
+        interop.actor_critic_from_flax(np_tree(params), model)
+        state = ppo.PPOState(cfg, model)
+        metrics = ppo.update_dagger(cfg, state, both(traj_np)[1], perm=perm)
+        results.append((metrics["hist_latent_loss"], model.state_dict()))
+    (loss0, sd0), (loss1, sd1) = results
+    assert torch.equal(loss0, loss1)
+    for k, v in sd0.items():
+        assert torch.equal(v, sd1[k]), k
+
+
+def test_bf16_rounding_matches_xla():
+    """float32 -> bfloat16 rounds to nearest, ties to even, overflow to
+    inf, in both frameworks: NaN, +-inf, +-0, ties either way, the largest
+    float32, subnormals. Finite and infinite values agree bit for bit; a
+    NaN stays a NaN (torch's CPU cast and XLA's give different NaN bits,
+    which no arithmetic on them can tell apart)."""
+    f32 = np.float32
+    x = np.concatenate([
+        np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0,
+                  1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8),
+                  -(1 + 3 * 2 ** -8), 1 + 2 ** -8 + 2 ** -20,
+                  np.finfo(f32).max, 3.39e38, 1e-40, 2.0 ** -133], f32),
+        np.array([0x7F800001, 0xFFC12345], np.uint32).view(f32),
+        np.random.default_rng(0).normal(size=64).astype(f32)])
+    got = torch.as_tensor(x).to(torch.bfloat16)
+    want = jnp.asarray(x).astype(jnp.bfloat16)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    finite = ~np.isnan(x)
+    np.testing.assert_array_equal(
+        got.view(torch.int16).numpy().view(np.uint16)[finite],
+        np.asarray(want).view(np.uint16)[finite])
