@@ -9,6 +9,8 @@
         --num_envs 8192 --seed 1 --spawn_relative  # one task's curve,
                                      # train CLI flags after --task T,
                                      # held to the JAX runs (learning_curve)
+    python3 chip_smoke.py --learning-curve 201 --task widowGo1_adaptive \
+        --num_envs 2048 --seed 1 --ts_weight 1   # held to the weight-1 run
 
 Phases, each of which raises on failure (exit code != 0):
   1. the card's name and power limit (nvidia-smi);
@@ -21,15 +23,15 @@ Phases, each of which raises on failure (exit code != 0):
      bodies), a geom->body map in random order, and the legged robots'
      shapes at 4096 envs on 13 bodies: 92 (go1), 76 (a1), 28 (anymal_b),
      22 (anymal_c) and 5 (cassie) spheres, play's 5 envs, one rank's
-     2048 go1 envs, and widowGo1_flat's 84 x 21 x 4096 (its learning
-     curve's shape). Per shape: its device
-     time per launch (a CUDA graph of TIMED_LAUNCHES launches rotating over
-     N_SETS input sets, so that at 84 x 8192 each launch reads its inputs
-     from HBM and not from the 50 MB L2), achieved GB/s and share of the
-     bound, the plain version's time and the wrapper's host time; beside
-     them two yardsticks: the kernel on one input set (L2 warm) and one
-     device copy that moves the same bytes (`copy_`, not a port of the
-     law);
+     2048 go1 envs, and the learning curves' 84 x 21 x 4096
+     (widowGo1_flat) and 84 x 21 x 2048 (widowGo1_adaptive). Per shape:
+     its device time per launch (a CUDA graph of TIMED_LAUNCHES launches
+     rotating over N_SETS input sets, so that at 84 x 8192 each launch
+     reads its inputs from HBM and not from the 50 MB L2), achieved GB/s
+     and share of the bound, the plain version's time and the wrapper's
+     host time; beside them two yardsticks: the kernel on one input set
+     (L2 warm) and one device copy that moves the same bytes (`copy_`,
+     not a port of the law);
   4. step check: one widowGo1 env step on the card (the kernel) against
      the same step on the CPU (the plain law), 64 envs, same state;
   5. slice: make_env("widowGo1", 8192 envs) on the full Perlin terrain, an
@@ -176,8 +178,8 @@ KERNEL_SHAPES = ((84, 21, NUM_ENVS, True), (84, 21, VARIANT_ENVS, True),
                  # play's widths, and one rank's half of go1's 4096 envs
                  (92, 13, PLAY_ENVS, True), (84, 21, PLAY_ENVS, True),
                  (92, 13, LEGGED_ENVS // 2, True),
-                 # widowGo1_flat's learning curve
-                 (84, 21, LEGGED_ENVS, True))
+                 # widowGo1_flat's and widowGo1_adaptive's learning curves
+                 (84, 21, LEGGED_ENVS, True), (84, 21, LEGGED_ENVS // 2, True))
 
 
 def log(msg):
@@ -1658,16 +1660,24 @@ def learning_curve(iterations, task="go1_flat", train_args=()):
     env whose physics step came out non-finite or faster than 15 m/s
     (what the env's explosion guard marks `bad`, read at the step's
     physics output) is counted. Prints the run every 50 iterations, then
-    each checkpoint of measure.CURVES[T] beside the JAX runs' values and
-    its band, and writes chiprun_out/learning_curve_<T>[_seed<k>].json.
-    Exits 1 if a value is out of its band (after writing everything)."""
+    each checkpoint of the curve's entry of measure.CURVES (`curve_key`
+    of T and `--ts_weight`; an unknown one raises before training) beside
+    the JAX runs' values and its band, and writes
+    chiprun_out/learning_curve_<key>[_seed<k>].json. Exits 1 if a value is
+    out of its band (after writing everything)."""
     from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.runner import train
     from dwbc_tpu_torch.utils import task_registry
-    from dwbc_tpu_torch.utils.measure import CURVES, compare_curves, read_curve
+    from dwbc_tpu_torch.utils.measure import (CURVES, compare_curves,
+                                              curve_key, read_curve)
 
-    seed = (train_args[train_args.index("--seed") + 1]
-            if "--seed" in train_args else "1")
+    def flag(name, default=None):
+        return (train_args[train_args.index(name) + 1]
+                if name in train_args else default)
+
+    seed = flag("--seed", "1")
+    ts_weight = flag("--ts_weight")
+    key = curve_key(task, None if ts_weight is None else float(ts_weight))
     suffix = "" if seed == "1" else f"_seed{seed}"
     blown = []
     kernel_rows = []
@@ -1703,7 +1713,8 @@ def learning_curve(iterations, task="go1_flat", train_args=()):
     task_registry.make_runner = counting
     log_root = os.path.join(OUT_DIR, "logs")
     run_dir = os.path.join(log_root, task_registry.TASKS[task].experiment_name,
-                           "curve" + suffix)
+                           "curve" + key[len(task):].replace("@", "_")
+                           + suffix)
     shutil.rmtree(run_dir, ignore_errors=True)
     t0 = time.time()
     try:
@@ -1726,17 +1737,18 @@ def learning_curve(iterations, task="go1_flat", train_args=()):
                              f"logged; non-finite values {bad}")
     for r in rows:
         if r["it"] % 50 == 0 or r["it"] == rows[-1]["it"]:
-            log(f"{task} it {r['it']}: " + ", ".join(
+            log(f"{key} it {r['it']}: " + ", ".join(
                 f"{k} {r[k]:.4f}" for k in (
                     "Train/mean_reward", "Train/mean_episode_length",
                     "Train/dones", "Policy/leg_mean_noise_std",
-                    "Perf/total_fps") if k in r))
-    log(f"{task}: {iterations} iterations in {wall:.1f} s, {launches} "
+                    "Policy/arm_mean_noise_std", "Loss/arm_torques_loss",
+                    "Episode/terrain_level", "Perf/total_fps") if k in r))
+    log(f"{key}: {iterations} iterations in {wall:.1f} s, {launches} "
         f"kernel launches, {n_bad} env steps with a non-finite or > 15 m/s "
         f"physics state, over {len(blown)} env steps")
     verdicts = []
-    spec = CURVES.get(task)
-    for checkpoints, keys in (spec["checks"] if spec else ()):
+    spec = CURVES[key]
+    for checkpoints, keys in spec["checks"]:
         verdicts += compare_curves(
             rows, [os.path.join(ROOT, p) for p in spec["runs"]],
             [c for c in checkpoints if c < iterations], keys)
@@ -1744,25 +1756,26 @@ def learning_curve(iterations, task="go1_flat", train_args=()):
         if v["missing"]:
             where = [m if m == "port" else os.path.relpath(m, ROOT)
                      for m in v["missing"]]
-            log(f"{task} it {v['it']} {v['key']}: missing in "
+            log(f"{key} it {v['it']} {v['key']}: missing in "
                 f"{', '.join(where)}: OUT")
             continue
         what = (f" ({v['channel']}, JAX {'/'.join(v['jax_channels'])})"
                 if "channel" in v else "")
-        log(f"{task} it {v['it']} {v['key']}{what}: port {v['port']:.4f}, "
+        log(f"{key} it {v['it']} {v['key']}{what}: port {v['port']:.4f}, "
             f"JAX {', '.join(f'{x:.4f}' for x in v['jax'])}, band "
             f"[{v['band'][0]:.4f}, {v['band'][1]:.4f}]: "
             f"{'in' if v['ok'] else 'OUT'}")
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, f"learning_curve_{task}{suffix}.json"),
+    with open(os.path.join(OUT_DIR, f"learning_curve_{key}{suffix}.json"),
               "w") as f:
-        json.dump(dict(card=card().smi, task=task, train_args=list(train_args),
+        json.dump(dict(card=card().smi, task=task, curve=key,
+                       train_args=list(train_args),
                        iterations=iterations, wall_s=wall,
                        kernel_launches=launches, bad_env_steps=n_bad,
                        env_steps=len(blown), kernel_rows=kernel_rows,
                        verdicts=verdicts, rows=rows), f, indent=1)
     out = [v for v in verdicts if not v["ok"]]
-    log(f"{task}: {len(verdicts) - len(out)} of {len(verdicts)} checks in "
+    log(f"{key}: {len(verdicts) - len(out)} of {len(verdicts)} checks in "
         f"their bands")
     if out:
         sys.exit(1)

@@ -151,6 +151,10 @@ TERM_KEYS = ("Episode/term_roll", "Episode/term_pitch", "Episode/term_z",
 TERMS = "Episode/term_*"   # the key of the leading-channel band
 LEN = "Train/mean_episode_length"
 REW = "Train/mean_reward"
+LEVEL = "Episode/terrain_level"
+LEG_STD = "Policy/leg_mean_noise_std"
+ARM_STD = "Policy/arm_mean_noise_std"
+TORQUES = "Loss/arm_torques_loss"
 
 
 class Band(NamedTuple):
@@ -241,8 +245,11 @@ def compare_curves(port_rows, jax_runs: Sequence[str],
 
 
 # The JAX runs and bands each task's curve is held to (paths from the
-# repository's root): a list of (checkpoints, {key: Band}).
+# repository's root): a list of (checkpoints, {key: Band}). Keyed by
+# task, and by `<task>@ts<weight>` for a torque-supervision weight other
+# than the default (`curve_key`).
 _SCALE = Band("scale", 0.8, 1.25)
+_WIDE = Band("scale", 0.67, 1.5)
 CURVES = {
     "widowGo1": dict(
         runs=tuple(f"logs/rough_widowGo1/{r}/metrics.jsonl" for r in
@@ -250,7 +257,7 @@ CURVES = {
         checks=[((10, 20, 30, 50, 100), {
             LEN: _SCALE, REW: Band("scale", 0.8, 1.25, magnitude=True),
             TERMS: Band("leading", 0.10),
-            "Policy/leg_mean_noise_std": Band("offset", 0.05)})]),
+            LEG_STD: Band("offset", 0.05)})]),
     "widowGo1_flat": dict(
         runs=("logs/flat_widowGo1/r5_widowflat/metrics.jsonl",),
         checks=[((10, 50, 100), {
@@ -262,4 +269,46 @@ CURVES = {
     "go1_flat": dict(
         runs=("logs/flat_go1/r2_go1flat_v2/metrics.jsonl",),
         checks=[((200, 300), {REW: Band("scale", 0.5, 2.0)})]),
+    # the curriculum first demotes everyone, the stairs families first
+    "go1": dict(
+        runs=("logs/rough_go1/r5_go1_famdiag/metrics.jsonl",),
+        checks=[((10, 20), {LEVEL: _WIDE}),
+                ((100,), {LEVEL: Band("offset", 0.10)}),
+                ((200, 300), {LEVEL: Band("offset", 0.05)}),
+                ((20,), {"Episode/metric_level_slope": Band("offset", 0.25),
+                         "Episode/metric_level_stairs_down":
+                             Band("offset", 0.25)}),
+                ((10, 20, 50, 100), {
+                    REW: Band("scale", 0.67, 1.5, magnitude=True)}),
+                ((10,), {LEN: _WIDE}),
+                ((50, 100, 200, 300), {LEG_STD: Band("offset", 0.05)})]),
+    # torque supervision at weight 0, the reference's default: the arm's
+    # std falls
+    "widowGo1_adaptive": dict(
+        runs=("logs/rough_widowGo1_adaptive/r5_adaptive_w0/metrics.jsonl",),
+        checks=[((10, 20, 30, 50, 100, 200), {
+            LEN: _SCALE, REW: Band("scale", 0.8, 1.25, magnitude=True),
+            TERMS: Band("leading", 0.10), LEG_STD: Band("offset", 0.05)}),
+                ((50, 100, 200), {ARM_STD: Band("offset", 0.05)}),
+                ((10, 30, 50), {TORQUES: _SCALE})]),
+    # the same at weight 1 (--ts_weight 1): the arm's std rises
+    "widowGo1_adaptive@ts1": dict(
+        runs=("logs/rough_widowGo1_adaptive/r5_adaptive_tsw1/"
+              "metrics.jsonl",),
+        checks=[((10, 30, 50), {TORQUES: _SCALE}),
+                ((50, 100, 200), {ARM_STD: Band("offset", 0.05)}),
+                ((10, 50, 100, 200), {LEN: _SCALE})]),
 }
+
+
+def curve_key(task: str, ts_weight: Optional[float] = None) -> str:
+    """The key of CURVES that a learning curve of `task` trained with
+    `--ts_weight ts_weight` is held to: the task's own entry at the
+    default weight (None or 0), `<task>@ts<weight>` otherwise. Raises
+    KeyError where CURVES has no such entry; never falls back to
+    another."""
+    key = task if ts_weight in (None, 0.0) else f"{task}@ts{ts_weight:g}"
+    if key not in CURVES:
+        raise KeyError(f"no learning curve for task {task!r} at ts_weight "
+                       f"{ts_weight!r} (CURVES holds {sorted(CURVES)})")
+    return key

@@ -1,7 +1,8 @@
 """`utils/measure.compare_curves` on the JAX package's committed learning
 curves (logs/<family>/<run>/metrics.jsonl): every run passes the bands
 its task's curve is held to, a curve made worse fails them, a resumed
-run's repeated iterations count once, and a missing key is reported.
+run's repeated iterations count once, and a missing key is reported;
+`curve_key` picks the entry of a torque-supervision weight or raises.
 Plain files, no device and no JAX."""
 
 import json
@@ -43,11 +44,44 @@ def test_each_rough_widowgo1_run_passes_the_bands_of_all_three(run):
 
 
 @pytest.mark.parametrize("task", ["widowGo1_flat", "go1_flat_lstm",
-                                  "go1_flat"])
+                                  "go1_flat", "go1", "widowGo1_adaptive",
+                                  "widowGo1_adaptive@ts1"])
 def test_single_run_tasks_pass_their_own_bands(task):
     (run,) = CURVES[task]["runs"]
     out = compare(task, rows_of(run))
     assert out and all(e["ok"] for e in out), out
+
+
+def test_weight_one_arm_std_fails_the_weight_zero_entry():
+    # the supervision gradient raises the arm's std at weight 1 and not at
+    # weight 0: the weight-1 run's std is out of the weight-0 bands
+    rows = rows_of(CURVES["widowGo1_adaptive@ts1"]["runs"][0])
+    out = compare("widowGo1_adaptive", rows)
+    arm = {e["it"]: e for e in out if e["key"] == measure.ARM_STD}
+    assert sorted(arm) == [50, 100, 200]
+    assert not arm[200]["ok"] and arm[200]["port"] > arm[200]["band"][1]
+    # and the weight-0 run's falls below the weight-1 bands
+    rows = rows_of(CURVES["widowGo1_adaptive"]["runs"][0])
+    out = compare("widowGo1_adaptive@ts1", rows)
+    arm = {e["it"]: e for e in out if e["key"] == measure.ARM_STD}
+    assert not arm[200]["ok"] and arm[200]["port"] < arm[200]["band"][0]
+
+
+@pytest.mark.parametrize("task, ts_weight, key", [
+    ("widowGo1_adaptive", None, "widowGo1_adaptive"),
+    ("widowGo1_adaptive", 0.0, "widowGo1_adaptive"),
+    ("widowGo1_adaptive", 1.0, "widowGo1_adaptive@ts1"),
+    ("go1", None, "go1")])
+def test_curve_key_picks_the_entry_of_the_weight(task, ts_weight, key):
+    assert measure.curve_key(task, ts_weight) == key
+
+
+@pytest.mark.parametrize("task, ts_weight", [
+    ("widowGo1_adaptive", 10.0), ("widowGo1_adaptive", 0.5),
+    ("widowGo1", 1.0), ("a1", None)])
+def test_curve_key_raises_on_an_unknown_combination(task, ts_weight):
+    with pytest.raises(KeyError):
+        measure.curve_key(task, ts_weight)
 
 
 def test_longer_episodes_fail_at_every_checkpoint():
