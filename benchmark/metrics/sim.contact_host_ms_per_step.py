@@ -1,0 +1,12 @@
+"""sim.contact_host_ms_per_step: host milliseconds per env step of the
+program's span `sim.contact`, the contact pipeline of each physics
+substep, geometry frames through the per-body wrenches (the contact law
+and the box coupling within), summed over the window's iterations
+(benchmark/program_spans.py). Host time, not device time: the span never
+waits for the card."""
+
+from benchmark import program_spans
+
+
+def read(rec):
+    return program_spans.span_ms_per_step(rec, "sim.contact")

@@ -290,38 +290,6 @@ class TaskBench:
         }
 
 
-def _trace(bench: TaskBench, out_dir: str):
-    """torch.profiler over one env step and one learn step: the Chrome
-    trace in out_dir, and on the card the device-busy share of that
-    window and its ten longest device operations."""
-    from torch.profiler import ProfilerActivity, profile
-
-    on_card = bench.device.type == "cuda"
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
-                                     else [])
-    bench._sync()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        bench.env_step()
-        bench.learn_step()
-        bench._sync()
-        wall = time.perf_counter() - t0
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"{bench.task}_step_learn.json")
-    prof.export_chrome_trace(path)
-    out = dict(file=path, task=bench.task, wall_s=wall,
-               device_busy_s=None, device_busy_share=None,
-               top_device_ops=None)
-    if on_card:
-        rows = measure.device_kernel_rows(prof.key_averages())
-        busy = sum(e.self_device_time_total for e in rows) / 1e6
-        out.update(device_busy_s=busy, device_busy_share=busy / wall,
-                   top_device_ops=[[e.key, e.count,
-                                    e.self_device_time_total / 1e3]
-                                   for e in rows[:10]])
-    return out
-
-
 def _sweep(task, n0, fps0, args, device):
     """{envs: fps} of one timed window of `task` at each --sweep width
     (the main run's median at its own width), one runner at a time."""
@@ -352,9 +320,6 @@ def _device_entry(device: torch.device):
 
 def parse_args(argv=None):
     env = os.environ.get
-    trace = env("DWBC_BENCH_TRACE") or None
-    if trace == "1":        # bench.py's switch and directory
-        trace = os.path.join("logs", "profile")
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", default="widowGo1",
                     help="comma-separated task names")
@@ -374,9 +339,6 @@ def parse_args(argv=None):
                     help="timed windows per task, interleaved across tasks")
     ap.add_argument("--sweep", default=env("DWBC_BENCH_SWEEP", ""),
                     help="comma-separated env counts for the first task")
-    ap.add_argument("--trace", default=trace, metavar="DIR",
-                    help="profile one env step and one learn step of the "
-                         "first task into DIR")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     return ap.parse_args(argv)
@@ -401,8 +363,6 @@ def main(argv=None):
     out = {k: v for k, v in results[0].items() if k != "task"}
     out["tasks"] = results
     out["device"] = _device_entry(device)
-    if args.trace:
-        out["trace"] = _trace(benches[0], args.trace)
     if args.sweep:
         first, n0 = benches[0].task, benches[0].num_envs
         del benches

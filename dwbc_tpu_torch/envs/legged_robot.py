@@ -40,6 +40,7 @@ from ..parallel import distributed
 from ..sim import dynamics, engine, fused
 from ..sim.contact import ContactParams
 from ..terrain import terrain as terr
+from ..utils import spans
 from ..utils.device import resolve_device
 from .legged_config import LeggedRobotCfg
 
@@ -494,8 +495,6 @@ class LeggedRobotEnv:
         cfg = self.cfg
         N = self.num_envs
         m = self.model
-        dev = self.device
-        gen = state.generator
 
         actions = torch.clamp(actions, -cfg.normalization.clip_actions,
                               cfg.normalization.clip_actions)
@@ -517,17 +516,30 @@ class LeggedRobotEnv:
                 return hidden, torch.clamp(tau, -self.torque_limits,
                                            self.torque_limits)
 
-            out, hidden = self.fused_step(
-                state.robot.q, state.robot.qd, tau_fn, *args,
-                tau_carry=state.actuator_hidden,
-                contact_carry=state.contact_carry)
+            with spans.span("env.physics"):
+                out, hidden = self.fused_step(
+                    state.robot.q, state.robot.qd, tau_fn, *args,
+                    tau_carry=state.actuator_hidden,
+                    contact_carry=state.contact_carry)
             state = _replace(state, actuator_hidden=hidden)
         else:
             def tau_fn(q_arr, qd_arr):
                 return self._pd_torques(actions, q_arr, qd_arr, last_dof_vel)
 
-            out = self.fused_step(state.robot.q, state.robot.qd, tau_fn,
-                                  *args, contact_carry=state.contact_carry)
+            with spans.span("env.physics"):
+                out = self.fused_step(state.robot.q, state.robot.qd, tau_fn,
+                                      *args, contact_carry=state.contact_carry)
+        with spans.span("env.post"):
+            return self._post_physics(state, out)
+
+    def _post_physics(self, state: LeggedState, out
+                      ) -> Tuple[LeggedState, LeggedStepOut]:
+        """The step after its physics: bookkeeping, commands, pushes,
+        heights, termination, rewards, stats, masked reset, observations."""
+        cfg = self.cfg
+        N = self.num_envs
+        dev = self.device
+        gen = state.generator
         robot = engine.BodyState(q=out.q, qd=out.qd)
         episode_length = state.episode_length + 1
         common_step = state.common_step + 1

@@ -29,6 +29,8 @@ from ..core.model import free_body_model
 from ..sim import dynamics, engine, fused
 from ..sim.contact import ContactParams
 from ..terrain import terrain as terr
+from ..utils import device as device_lib
+from ..utils import spans
 from ..utils.device import resolve_device
 from .config import WidowGo1Cfg
 
@@ -292,6 +294,7 @@ class WidowGo1Env:
         up to 10 attempts per env against the collision AABB."""
         g = self.cfg.goal_ee
         N = self.num_envs
+        device_lib.host_sync(self.device, 2)   # the bounds' two copies
         lo = torch.as_tensor([r[0] for r in g.final_delta_orn],
                              dtype=torch.float32, device=self.device)
         hi = torch.as_tensor([r[1] for r in g.final_delta_orn],
@@ -573,9 +576,7 @@ class WidowGo1Env:
 
     def step(self, state: EnvState, actions: torch.Tensor, counter: float):
         cfg = self.cfg
-        N = self.num_envs
         curr = self.curriculum(counter)
-        gen = state.generator
 
         # 1. clip + action delay buffer (widowGo1.py:1162-1173)
         actions = torch.clamp(actions, -cfg.normalization.clip_actions,
@@ -600,15 +601,27 @@ class WidowGo1Env:
             return self._pd_torques(delayed, q[:, 7:7 + 18], qd[:, 6:6 + 18],
                                     motor_strength)
 
-        out, box_q_n, box_qd_n = self.fused_step(
-            state.robot.q, state.robot.qd, tau_fn,
-            state.inert.mass, state.inert.com, state.inert.inertia,
-            torch.clamp(state.friction, min=0.0), cfg.control.decimation,
-            box_q=state.box.q, box_qd=state.box.qd,
-            box_mass=state.box_inert.mass[:, 0],
-            box_i_diag=torch.diagonal(state.box_inert.inertia[:, 0],
-                                      dim1=-2, dim2=-1),
-            contact_carry=state.contact_carry)
+        with spans.span("env.physics"):
+            out, box_q_n, box_qd_n = self.fused_step(
+                state.robot.q, state.robot.qd, tau_fn,
+                state.inert.mass, state.inert.com, state.inert.inertia,
+                torch.clamp(state.friction, min=0.0), cfg.control.decimation,
+                box_q=state.box.q, box_qd=state.box.qd,
+                box_mass=state.box_inert.mass[:, 0],
+                box_i_diag=torch.diagonal(state.box_inert.inertia[:, 0],
+                                          dim1=-2, dim2=-1),
+                contact_carry=state.contact_carry)
+        with spans.span("env.post"):
+            return self._post_physics(state, out, box_q_n, box_qd_n, curr,
+                                      extras)
+
+    def _post_physics(self, state: EnvState, out, box_q_n, box_qd_n, curr,
+                      extras):
+        """The step after its physics: bookkeeping, goal and commands,
+        pushes, termination, rewards, stats, masked reset, observations."""
+        cfg = self.cfg
+        N = self.num_envs
+        gen = state.generator
         box = engine.BodyState(q=box_q_n, qd=box_qd_n)
         robot = engine.BodyState(q=out.q, qd=out.qd)
 
@@ -773,6 +786,7 @@ class WidowGo1Env:
         curr_goal = (state.curr_ee_goal_sphere
                      if cfg.goal_ee.command_mode == "sphere"
                      else state.curr_ee_goal_cart)
+        device_lib.host_sync(self.device)
         commands_scale = torch.tensor([sc.lin_vel, sc.lin_vel, sc.ang_vel],
                                       device=self.device)
         prop = torch.cat([
@@ -869,6 +883,7 @@ class WidowGo1Env:
             q[:, :1], self.z_invariant_offset)], -1) + maths.quat_rotate(
             yq, state.curr_ee_goal_cart)
         pos_err = target - ee_pos
+        device_lib.host_sync(self.device)
         ee_orn_des = torch.tensor([0.0, 0.7071068, 0.0, 0.7071068],
                                   device=self.device)
         orn_err = maths.orientation_error(ee_orn_des, maths.normalize(ee_orn))
@@ -916,6 +931,7 @@ class WidowGo1Env:
         ep = dict(state.episode_sums)
         met = dict(state.metric_sums)
         base_quat = robot.q[:, 3:7]
+        device_lib.host_sync(dev)
         projected_gravity = maths.quat_rotate_inverse(
             base_quat, torch.tensor([0.0, 0.0, -1.0], device=dev).expand(N, 3))
 
@@ -932,6 +948,7 @@ class WidowGo1Env:
         leg_power = torques[:, :12] * dof_vel[:, :12]
         energy_sq = torch.sum(torch.square(leg_power), -1)
         met["energy_square"] = met["energy_square"] + energy_sq
+        device_lib.host_sync(dev)   # the index list's copy
         hip_l2 = torch.sum(torch.square(state.actions[:, [0, 3, 6, 9]]), -1)
         met["leg_action_l2"] = met["leg_action_l2"] + hip_l2
         # sensor-frame z, like the reference's foot force sensors (:1456)
@@ -1029,6 +1046,7 @@ class WidowGo1Env:
         orn_delta = maths.wrap_to_pi(
             state.ee_goal_orn_euler - ee_orn_euler) * self.orn_error_scale
         orn_err = torch.sum(torch.abs(orn_delta), -1)
+        device_lib.host_sync(dev)   # the index list's copy
         orn_err_ry = torch.sum(torch.abs(orn_delta[:, [0, 2]]), -1)
         met["tracking_ee_orn"] = met["tracking_ee_orn"] + orn_err_ry
         arm_energy = torch.sum(

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils import spans
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src", "terrain.cpp")
 LIB_PATH = os.path.join(_DIR, "lib", "libdwbc_torch_terrain.so")
@@ -61,10 +63,11 @@ def _load() -> Optional[ctypes.CDLL]:
     if _lib is not None or _load_failed:
         return _lib
     try:
-        if (not os.path.exists(LIB_PATH)
-                or os.path.getmtime(LIB_PATH) < os.path.getmtime(_SRC)):
-            build()
-        lib = ctypes.CDLL(LIB_PATH)
+        with spans.span("setup.native"):
+            if (not os.path.exists(LIB_PATH)
+                    or os.path.getmtime(LIB_PATH) < os.path.getmtime(_SRC)):
+                build()
+            lib = ctypes.CDLL(LIB_PATH)
     except (OSError, subprocess.CalledProcessError):  # no g++ / no build
         _load_failed = True
         return None

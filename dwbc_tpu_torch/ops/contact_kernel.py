@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from ..sim.contact import ContactParams, GeomConst, fused_terrain_law
+from ..utils import spans
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "contact_law.cu")
@@ -77,8 +78,9 @@ def build(force: bool = False) -> str:
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(LIBRARY)
+        with spans.span("setup.native"):
+            build()
+            lib = ctypes.CDLL(LIBRARY)
         fn = lib.dwbc_contact_law
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 3

@@ -42,6 +42,8 @@ import torch
 
 from ..models import actor_critic as ac_lib
 from ..parallel import distributed as dist
+from ..utils import device as device_lib
+from ..utils import spans
 
 # see update(): bf16 storage of the permuted observations
 _BF16_OBS = os.environ.get("DWBC_BF16_OBS") == "1"
@@ -194,6 +196,11 @@ def compute_gae(cfg: PPOConfig, traj: Transition, last_values: torch.Tensor):
 
     Timeout bootstrap mirrors ppo.py:133-134: rewards += gamma * values *
     time_out before GAE."""
+    with spans.span("ppo.gae"):
+        return _gae(cfg, traj, last_values)
+
+
+def _gae(cfg: PPOConfig, traj: Transition, last_values: torch.Tensor):
     rewards = traj.rewards + cfg.gamma * traj.values * traj.time_outs[..., None]
     not_done = 1.0 - traj.dones[..., None].to(torch.float32)
     advantage = torch.zeros_like(last_values)
@@ -423,19 +430,21 @@ def update(cfg: PPOConfig, state: PPOState, traj: Transition,
     # single randperm (rollout_storage.py:163)
     for _ in range(cfg.num_learning_epochs):
         for i in range(nmb):
-            state.opt.zero_grad(set_to_none=False)
-            loss, aux = loss_fn(slice(i * mb_size, (i + 1) * mb_size))
-            loss.backward()
-            if dist.active():
-                aux = _mean_over_ranks(state.params, aux)
-            if adaptive_lr:
-                # changed before the step of the same minibatch. Reading
-                # the KL is one host round trip per minibatch, on this
-                # schedule only.
-                lr = adapt_learning_rate(cfg, lr, aux["kl_mean"].item())
-            _adam_step(state.opt, state.params, cfg.max_grad_norm, lr)
-            for k in keys:
-                totals[k] = totals[k] + aux[k].detach()
+            with spans.span("ppo.minibatch"):
+                state.opt.zero_grad(set_to_none=False)
+                loss, aux = loss_fn(slice(i * mb_size, (i + 1) * mb_size))
+                loss.backward()
+                if dist.active():
+                    aux = _mean_over_ranks(state.params, aux)
+                if adaptive_lr:
+                    # changed before the step of the same minibatch.
+                    # Reading the KL is one host round trip per
+                    # minibatch, on this schedule only.
+                    device_lib.host_sync(aux["kl_mean"])
+                    lr = adapt_learning_rate(cfg, lr, aux["kl_mean"].item())
+                _adam_step(state.opt, state.params, cfg.max_grad_norm, lr)
+                for k in keys:
+                    totals[k] = totals[k] + aux[k].detach()
 
     enforce_min_std(cfg, model)   # min-std floor (ppo.py:293-296)
 
@@ -483,23 +492,25 @@ def update_dagger(cfg: PPOConfig, state: PPOState, traj: Transition,
     total = torch.zeros((), device=dev)
     for _ in range(cfg.num_learning_epochs):
         for i in range(nmb):
-            obs = flat_obs[i * mb_size:(i + 1) * mb_size]
-            priv = model.priv_latent(obs).detach()
-            hist = model.hist_latent(obs)
-            loss = torch.sqrt(
-                torch.sum(torch.square(priv - hist), -1) + 1e-12).mean()
-            # the gradient outside the history encoder is zero (the
-            # privileged latent is detached), so the global-norm clip over
-            # the history encoder's gradients is the clip over all of them
-            grads = torch.autograd.grad(loss, state.hist_params)
-            for p, g in zip(state.hist_params, grads):
-                p.grad = g
-            if dist.active():
-                loss = _mean_over_ranks(state.hist_params,
-                                        {"loss": loss})["loss"]
-            _adam_step(state.hist_opt, state.hist_params, cfg.max_grad_norm,
-                       cfg.learning_rate)
-            total = total + loss.detach()
+            with spans.span("ppo.dagger_minibatch"):
+                obs = flat_obs[i * mb_size:(i + 1) * mb_size]
+                priv = model.priv_latent(obs).detach()
+                hist = model.hist_latent(obs)
+                loss = torch.sqrt(
+                    torch.sum(torch.square(priv - hist), -1) + 1e-12).mean()
+                # the gradient outside the history encoder is zero (the
+                # privileged latent is detached), so the global-norm clip
+                # over the history encoder's gradients is the clip over
+                # all of them
+                grads = torch.autograd.grad(loss, state.hist_params)
+                for p, g in zip(state.hist_params, grads):
+                    p.grad = g
+                if dist.active():
+                    loss = _mean_over_ranks(state.hist_params,
+                                            {"loss": loss})["loss"]
+                _adam_step(state.hist_opt, state.hist_params,
+                           cfg.max_grad_norm, cfg.learning_rate)
+                total = total + loss.detach()
     n_updates = cfg.num_learning_epochs * nmb
     state.counter += 1
     return {"hist_latent_loss": total / n_updates}
@@ -509,6 +520,7 @@ def update_dagger(cfg: PPOConfig, state: PPOState, traj: Transition,
 def enforce_min_std(cfg: PPOConfig, model: torch.nn.Module):
     """Clamp the std parameter in place at the per-joint floor; a floor of
     another shape means no per-joint floor for this task family."""
+    device_lib.host_sync(model.std)
     floor = torch.tensor(cfg.min_policy_std, dtype=torch.float32,
                          device=model.std.device)
     if floor.shape != model.std.shape:

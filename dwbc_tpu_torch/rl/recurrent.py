@@ -30,6 +30,8 @@ import torch
 from ..models.actor_critic_recurrent import ActorCriticRecurrent, _map_carry
 from ..parallel import distributed as dist
 from ..parallel import mesh
+from ..utils import device as device_lib
+from ..utils import spans
 from . import ppo as ppo_lib
 from .runner import rank_generators
 
@@ -87,10 +89,11 @@ class RecurrentPPO:
         nres = torch.zeros((), dtype=torch.int64, device=dev)
         steps = []
         for _ in range(self.num_steps):
-            carry, mean, value = model.step(carry, obs, dprev)
-            actions = mean + std * torch.randn(mean.shape, generator=gen,
-                                               device=dev)
-            logp = _logp(actions, mean, std)
+            with spans.span("rollout.policy"):
+                carry, mean, value = model.step(carry, obs, dprev)
+                actions = mean + std * torch.randn(mean.shape, generator=gen,
+                                                   device=dev)
+                logp = _logp(actions, mean, std)
             env_state, out = env.step(env_state, actions)
             steps.append((obs, actions, out.rew[..., None], out.reset, dprev,
                           out.time_outs, value, logp, mean))
@@ -174,18 +177,20 @@ class RecurrentPPO:
         lr = state.learning_rate
         for _ in range(cfg.num_learning_epochs):
             for idx in idx_mat:
-                state.opt.zero_grad(set_to_none=False)
-                loss, aux = loss_fn(idx)
-                loss.backward()
-                if dist.active():
-                    aux = ppo_lib._mean_over_ranks(state.params, aux)
-                if adaptive_lr:
-                    lr = ppo_lib.adapt_learning_rate(cfg, lr,
-                                                     aux["kl_mean"].item())
-                ppo_lib._adam_step(state.opt, state.params, cfg.max_grad_norm,
-                                   lr)
-                for k in keys:
-                    totals[k] = totals[k] + aux[k]
+                with spans.span("ppo.minibatch"):
+                    state.opt.zero_grad(set_to_none=False)
+                    loss, aux = loss_fn(idx)
+                    loss.backward()
+                    if dist.active():
+                        aux = ppo_lib._mean_over_ranks(state.params, aux)
+                    if adaptive_lr:
+                        device_lib.host_sync(aux["kl_mean"])
+                        lr = ppo_lib.adapt_learning_rate(
+                            cfg, lr, aux["kl_mean"].item())
+                    ppo_lib._adam_step(state.opt, state.params,
+                                       cfg.max_grad_norm, lr)
+                    for k in keys:
+                        totals[k] = totals[k] + aux[k]
         n = cfg.num_learning_epochs * nmb
         state.learning_rate = lr
         state.counter += 1
@@ -235,6 +240,13 @@ class RecurrentRunner:
         self.carry = self.model.initial_state(env.num_envs)
         self.last_dones = torch.zeros((env.num_envs,), dtype=torch.bool,
                                       device=dev)
+        self.last_collection_time = 0.0
+        self.last_learn_time = 0.0
+
+    def _sync(self):
+        if device_lib.on_card(self.device):
+            spans.count("host_sync")
+            torch.cuda.synchronize(self.device)
 
     def learn(self, num_iterations: int, log=print, log_every: int = 10,
               save_interval: int = 500):
@@ -244,48 +256,59 @@ class RecurrentRunner:
             if self.log_dir and self.is_main and it > 0 \
                     and it % save_interval == 0:
                 self.save(os.path.join(self.log_dir, f"model_{it}"))
+            spans.begin_iteration(it)
             h0 = self.carry
-            (self.env_state, self.obs, self.carry, self.last_dones, traj,
-             last_values, ep_stats, nres) = self.alg.collect(
-                self.env_state, self.obs, self.carry, self.last_dones,
-                self.noise_gen)
-            metrics = self.alg.update(self.ppo_state, traj, h0, last_values,
-                                      self.perm_gen)
+            with spans.span("runner.collect") as collect:
+                (self.env_state, self.obs, self.carry, self.last_dones, traj,
+                 last_values, ep_stats, nres) = self.alg.collect(
+                    self.env_state, self.obs, self.carry, self.last_dones,
+                    self.noise_gen)
+                self._sync()
+            with spans.span("runner.learn") as learn:
+                metrics = self.alg.update(self.ppo_state, traj, h0,
+                                          last_values, self.perm_gen)
+                self._sync()
+            self.last_collection_time = collect.seconds
+            self.last_learn_time = learn.seconds
             # the job's mean step reward (every rank holds as many envs)
             step_rew = traj.rewards.mean().reshape(1)
             dist.all_reduce_mean([step_rew])   # nothing outside a group
             history.append(step_rew[0])
-            if it % log_every != 0:
-                continue
-            # ONE host transfer for the logged scalars, the job's sums;
-            # episode-based metrics on the feedforward family's names so
-            # the LSTM curve is directly comparable to flat_go1's
-            # (on_policy_runner.py:140-154 deque semantics)
-            sums = torch.stack([nres.to(torch.float32),
-                                ep_stats["reward_sum"], ep_stats["len_sum"]])
-            dist.all_reduce_sum([sums])
-            mean_rew, nres, rew_sum, len_sum, v_loss, s_loss = torch.cat([
-                step_rew, sums, torch.stack([metrics["value_loss"],
-                                             metrics["surrogate_loss"]])
-            ]).tolist()
-            n = max(int(nres), 1)
-            if log and self.is_main:
-                log(f"recurrent it {it} ep rew {rew_sum / n:.3f} "
-                    f"ep len {len_sum / n:.1f} step rew {mean_rew:.4f} "
-                    f"vloss {v_loss:.4f}")
-            if self._log_f:
-                self._log_f.write(json.dumps({
-                    "it": it, "Train/mean_step_reward": mean_rew,
-                    "Train/mean_reward": rew_sum / n,
-                    "Train/mean_episode_length": len_sum / n,
-                    "Train/dones": int(nres),
-                    "Loss/value_loss": v_loss,
-                    "Loss/surrogate_loss": s_loss,
-                }) + "\n")
-                self._log_f.flush()
+            if it % log_every == 0:
+                self._log(it, step_rew, nres, ep_stats, metrics, log)
+            spans.end_iteration()
         if self.log_dir and self.is_main:
             self.save(os.path.join(self.log_dir, f"model_{num_iterations}"))
         return [float(h) for h in history]
+
+    def _log(self, it, step_rew, nres, ep_stats, metrics, log):
+        # ONE host transfer for the logged scalars, the job's sums;
+        # episode-based metrics on the feedforward family's names so
+        # the LSTM curve is directly comparable to flat_go1's
+        # (on_policy_runner.py:140-154 deque semantics)
+        sums = torch.stack([nres.to(torch.float32),
+                            ep_stats["reward_sum"], ep_stats["len_sum"]])
+        dist.all_reduce_sum([sums])
+        device_lib.host_sync(sums)
+        mean_rew, nres, rew_sum, len_sum, v_loss, s_loss = torch.cat([
+            step_rew, sums, torch.stack([metrics["value_loss"],
+                                         metrics["surrogate_loss"]])
+        ]).tolist()
+        n = max(int(nres), 1)
+        if log and self.is_main:
+            log(f"recurrent it {it} ep rew {rew_sum / n:.3f} "
+                f"ep len {len_sum / n:.1f} step rew {mean_rew:.4f} "
+                f"vloss {v_loss:.4f}")
+        if self._log_f:
+            self._log_f.write(json.dumps({
+                "it": it, "Train/mean_step_reward": mean_rew,
+                "Train/mean_reward": rew_sum / n,
+                "Train/mean_episode_length": len_sum / n,
+                "Train/dones": int(nres),
+                "Loss/value_loss": v_loss,
+                "Loss/surrogate_loss": s_loss,
+            }) + "\n")
+            self._log_f.flush()
 
     def close(self):
         """Close metrics.jsonl; the runner logs nothing afterwards."""

@@ -28,7 +28,6 @@ import dataclasses
 import inspect
 import json
 import os
-import time
 from typing import Optional
 
 import torch
@@ -37,6 +36,8 @@ from ..envs.vec_env import VecEnv
 from ..models import actor_critic as ac_lib
 from ..parallel import distributed as dist
 from ..parallel import mesh
+from ..utils import device as device_lib
+from ..utils import spans
 from . import ppo as ppo_lib
 
 
@@ -108,10 +109,11 @@ class Rollout:
         steps = []
         no_arm = torch.zeros((N, 6), device=dev)
         for _ in range(self.num_steps):
-            mean = model.act_mean(obs, hist_encoding)
-            actions = ac_lib.normal_sample(gen, mean, std)
-            logp = ppo_lib.logp_heads(self.cfg, actions, mean, std)
-            values = model.evaluate(obs)
+            with spans.span("rollout.policy"):
+                mean = model.act_mean(obs, hist_encoding)
+                actions = ac_lib.normal_sample(gen, mean, std)
+                logp = ppo_lib.logp_heads(self.cfg, actions, mean, std)
+                values = model.evaluate(obs)
             if self.has_counter:
                 env_state, out = env.step(env_state, actions, counter)
             else:
@@ -258,7 +260,8 @@ class OnPolicyRunner:
             self._writers = []
 
     def _sync(self):
-        if self.device.type == "cuda":
+        if device_lib.on_card(self.device):
+            spans.count("host_sync")
             torch.cuda.synchronize(self.device)
 
     def learn(self, num_iterations: int, log_every: int = 10):
@@ -268,19 +271,22 @@ class OnPolicyRunner:
             dagger = (self.cfg.use_dagger
                       and (it % self.cfg.dagger_update_freq) == 0)
 
+            rec = spans.begin_iteration(it)
             self.last_traj = None   # free it before the next one is built
-            t0 = time.time()
-            (self.env_state, self.obs, traj, stats, nres) = self.rollout.collect(
-                self.env_state, self.obs, counter, self.noise_gen,
-                hist_encoding=dagger)
-            self._sync()
-            collection_time = time.time() - t0
+            with spans.span("runner.collect") as collect:
+                (self.env_state, self.obs, traj, stats,
+                 nres) = self.rollout.collect(
+                    self.env_state, self.obs, counter, self.noise_gen,
+                    hist_encoding=dagger)
+                self._sync()
+            collection_time = collect.seconds
 
-            t0 = time.time()
-            metrics = self.rollout.learn_step(self.ppo_state, traj, self.obs,
-                                              self.perm_gen, dagger)
-            self._sync()
-            learn_time = time.time() - t0
+            with spans.span("runner.learn") as learn:
+                metrics = self.rollout.learn_step(self.ppo_state, traj,
+                                                  self.obs, self.perm_gen,
+                                                  dagger)
+                self._sync()
+            learn_time = learn.seconds
 
             self.tot_timesteps += self.rollout.num_steps * self.num_envs_global
             self.tot_time += collection_time + learn_time
@@ -290,14 +296,20 @@ class OnPolicyRunner:
             self.it = it + 1
 
             if it % log_every == 0 or it == num_iterations - 1:
-                self._log(it, metrics, stats, nres, collection_time, learn_time)
+                self._log(it, metrics, stats, nres, collection_time,
+                          learn_time, rec)
             if (self.log_dir and self.is_main and it > 0
                     and it % self.save_interval == 0):
                 self.save(os.path.join(self.log_dir, f"model_{it}"))
+            spans.end_iteration()
         if self.log_dir and self.is_main:
             self.save(os.path.join(self.log_dir, f"model_{self.it}"))
 
-    def _log(self, it, metrics, stats, nres, collection_time, learn_time):
+    def _log(self, it, metrics, stats, nres, collection_time, learn_time,
+             rec=None):
+        """Print, write and send the iteration's numbers; `rec`, where
+        given, is its record of spans and counters (utils/spans) as far
+        as it goes."""
         fps = int(self.rollout.num_steps * self.num_envs_global
                   / max(collection_time + learn_time, 1e-9))
         # ONE host transfer for the ~75 logged scalars: a .item() each
@@ -313,11 +325,13 @@ class OnPolicyRunner:
             # are already equal on every rank; terrain_level and step_*
             # are per-step means over envs)
             dist.all_reduce_sum([vec])
+            device_lib.host_sync(vec)   # the flags' copy to the card
             is_mean = torch.tensor(
                 [k.startswith(("m/", "s/step_")) or k == "s/terrain_level"
                  for k in on_dev], device=vec.device)
             vec = torch.where(is_mean, vec / dist.world_size(), vec)
         std = self.model.std.detach()
+        device_lib.host_sync(vec)
         host = torch.cat([vec, std]).tolist()
         scalars.update(zip(on_dev, host))
         std = host[len(on_dev):]
@@ -353,6 +367,10 @@ class OnPolicyRunner:
         if "terrain_level" in stats:  # per-step mean, not per-reset
             d["Episode/terrain_level"] = (stats["terrain_level"]
                                           / self.rollout.num_steps)
+        if rec is not None:
+            for k, (_, ns) in rec["spans"].items():
+                d["Perf/span/" + k] = ns * 1e-9
+            d["Perf/host_syncs"] = rec["counters"].get("host_sync", 0)
         line = (f"it {it:5d} | fps {fps:8d} | rew {d['Train/mean_reward']:.3f}"
                 f" | arm {d['Train/mean_arm_reward']:.3f}"
                 f" | len {d['Train/mean_episode_length']:.1f}"

@@ -49,7 +49,9 @@ def main(argv=None):
                          "one device")
     ap.add_argument("--profile", action="store_true",
                     help="capture a torch.profiler trace of iterations 5-8 "
-                         "into <log_dir>/profile")
+                         "into <log_dir>/profile; it holds the program's "
+                         "spans (utils/spans.py) beside the operators and "
+                         "kernels")
     ap.add_argument("--spawn_relative", action="store_true",
                     help="widowGo1 family: spawn at terrain + 0.40 m "
                          "instead of the reference's absolute 0.42 m — "

@@ -24,6 +24,7 @@ from ..core import maths, spatial
 from ..core.model import RobotModel
 from ..ops.contact_kernel import contact_law
 from ..terrain.terrain import Heightfield
+from ..utils import spans
 from ..utils.device import resolve_device
 from .contact import GeomConst, m_dir
 from .engine import PhysCtx, SimParams
@@ -401,116 +402,127 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
     def substep(q, qd, tau, IA_body, mass, com, cache, cf, friction, bx,
                 box_cache):
         # ---------------- FK ----------------
-        R, p, v, jR, jp = fk(q, qd)
+        with spans.span("sim.fk"):
+            R, p, v, jR, jp = fk(q, qd)
 
         # ---------------- terrain contact, (ng, N) layout ----------------
-        Rg, r_w, pg = geom_frames(R, p)
-        vg = torch.stack(v)[gb]                               # (ng, N, 6)
-        w_w = (Rg @ vg[..., :3, None]).squeeze(-1)
-        u_w = (Rg @ vg[..., 3:, None]).squeeze(-1)
-        gp = (pg + r_w).permute(2, 0, 1).contiguous()          # (3, ng, N)
-        gv = (u_w + torch.linalg.cross(w_w, r_w)).permute(2, 0, 1).contiguous()
-        gF, cf_terr, active, share_f = contact_law(
-            gp, gv, cache, cf["terr"], friction, gc, cp, dt)
-        cf_new = {"terr": cf_terr}
+        with spans.span("sim.contact"):
+            Rg, r_w, pg = geom_frames(R, p)
+            vg = torch.stack(v)[gb]                           # (ng, N, 6)
+            w_w = (Rg @ vg[..., :3, None]).squeeze(-1)
+            u_w = (Rg @ vg[..., 3:, None]).squeeze(-1)
+            gp = (pg + r_w).permute(2, 0, 1).contiguous()      # (3, ng, N)
+            gv = (u_w + torch.linalg.cross(w_w, r_w)).permute(
+                2, 0, 1).contiguous()
+            gF, cf_terr, active, share_f = contact_law(
+                gp, gv, cache, cf["terr"], friction, gc, cp, dt)
+            cf_new = {"terr": cf_terr}
 
-        if bx is not None:
-            F_geom, box_F, box_N = box_coupling(gp, gv, share_f, cf, cf_new,
-                                                bx, box_cache, friction)
-            gF = gF + F_geom
+            if bx is not None:
+                F_geom, box_F, box_N = box_coupling(
+                    gp, gv, share_f, cf, cf_new, bx, box_cache, friction)
+                gF = gF + F_geom
 
-        # per-body world wrench [torque; force] at body origins
-        torque_g = _cross0(r_w.permute(2, 0, 1), gF)
-        bF = torch.matmul(E, gF).permute(2, 1, 0)              # (N, nb, 3)
-        bN = torch.matmul(E, torque_g).permute(2, 1, 0)
+            # per-body world wrench [torque; force] at body origins
+            torque_g = _cross0(r_w.permute(2, 0, 1), gF)
+            bF = torch.matmul(E, gF).permute(2, 1, 0)          # (N, nb, 3)
+            bN = torch.matmul(E, torque_g).permute(2, 1, 0)
 
-        # ---------------- joint-space extra torques ----------------
-        qj, qdj = q[:, 7:], qd[:, 6:]
-        below = torch.clamp(qj - dof_lo, max=0.0)
-        above = torch.clamp(qj - dof_hi, min=0.0)
-        t = -params.limit_kp * (below + above) * i_eff
-        stop = i_eff * torch.abs(qdj) / dt
-        mag = damping * torch.abs(qdj) + friction_j
-        mag = mag + torch.where((below < 0) | (above > 0),
-                                params.limit_kd * torch.abs(qdj), 0.0)
-        tau_eff = tau + (t - torch.sign(qdj) * torch.minimum(mag, stop))
+        # ---------------- joint-space extra torques, ABA ----------------
+        with spans.span("sim.aba"):
+            qj, qdj = q[:, 7:], qd[:, 6:]
+            below = torch.clamp(qj - dof_lo, max=0.0)
+            above = torch.clamp(qj - dof_hi, min=0.0)
+            t = -params.limit_kp * (below + above) * i_eff
+            stop = i_eff * torch.abs(qdj) / dt
+            mag = damping * torch.abs(qdj) + friction_j
+            mag = mag + torch.where((below < 0) | (above > 0),
+                                    params.limit_kd * torch.abs(qdj), 0.0)
+            tau_eff = tau + (t - torch.sign(qdj) * torch.minimum(mag, stop))
 
-        # ---------------- ABA ----------------
-        Rs = torch.stack(R, 1)                                 # (N, nb, 3, 3)
-        Rst = Rs.transpose(-1, -2)
-        vs = torch.stack(v, 1)                                 # (N, nb, 6)
-        fg_lin = _mv(Rst, gvec) * mass[..., None]
-        f_bias = torch.cat([torch.linalg.cross(com, fg_lin) + _mv(Rst, bN),
-                            fg_lin + _mv(Rst, bF)], -1)
-        pA = list((spatial.cross_force(vs, _mv(IA_body, vs)) - f_bias).unbind(1))
-        qd_b = torch.cat([torch.zeros_like(qd[:, :1]), qdj], -1)  # (N, nb)
-        c_vp = spatial.cross_motion(vs, S * qd_b[..., None]).unbind(1)
-        IA = list(IA_body.unbind(1))
+            # ---------------- ABA ----------------
+            Rs = torch.stack(R, 1)                         # (N, nb, 3, 3)
+            Rst = Rs.transpose(-1, -2)
+            vs = torch.stack(v, 1)                             # (N, nb, 6)
+            fg_lin = _mv(Rst, gvec) * mass[..., None]
+            f_bias = torch.cat(
+                [torch.linalg.cross(com, fg_lin) + _mv(Rst, bN),
+                 fg_lin + _mv(Rst, bF)], -1)
+            pA = list((spatial.cross_force(vs, _mv(IA_body, vs))
+                       - f_bias).unbind(1))
+            qd_b = torch.cat([torch.zeros_like(qd[:, :1]), qdj], -1)  # (N, nb)
+            c_vp = spatial.cross_motion(vs, S * qd_b[..., None]).unbind(1)
+            IA = list(IA_body.unbind(1))
 
-        U, d_inv, u_ = [None] * nb, [None] * nb, [None] * nb
-        for i in range(nb - 1, 0, -1):
-            pa = parent[i]
-            Ui = IA[i] @ S[i]
-            d_inv[i] = 1.0 / (Ui @ S[i] + armature[i - 1])
-            u_[i] = tau_eff[:, i - 1] - pA[i] @ S[i]
-            U[i] = Ui
-            Ia = IA[i] + Ui[:, :, None] * Ui[:, None, :] * (-d_inv[i])[:, None, None]
-            pai = pA[i] + _mv(Ia, c_vp[i]) + Ui * (u_[i] * d_inv[i])[:, None]
-            Rj, pj = jR[i], jp[i]
-            Rfu = _mv(Rj, pai[:, 3:])
-            fp_ang = _mv(Rj, pai[:, :3]) + torch.linalg.cross(pj.expand_as(Rfu),
-                                                              Rfu)
-            pA[pa] = pA[pa] + torch.cat([fp_ang, Rfu], -1)
-            IA[pa] = IA[pa] + _transform_abi(Ia, Rj, pj)
+            U, d_inv, u_ = [None] * nb, [None] * nb, [None] * nb
+            for i in range(nb - 1, 0, -1):
+                pa = parent[i]
+                Ui = IA[i] @ S[i]
+                d_inv[i] = 1.0 / (Ui @ S[i] + armature[i - 1])
+                u_[i] = tau_eff[:, i - 1] - pA[i] @ S[i]
+                U[i] = Ui
+                Ia = (IA[i] + Ui[:, :, None] * Ui[:, None, :]
+                      * (-d_inv[i])[:, None, None])
+                pai = (pA[i] + _mv(Ia, c_vp[i])
+                       + Ui * (u_[i] * d_inv[i])[:, None])
+                Rj, pj = jR[i], jp[i]
+                Rfu = _mv(Rj, pai[:, 3:])
+                fp_ang = _mv(Rj, pai[:, :3]) + torch.linalg.cross(
+                    pj.expand_as(Rfu), Rfu)
+                pA[pa] = pA[pa] + torch.cat([fp_ang, Rfu], -1)
+                IA[pa] = IA[pa] + _transform_abi(Ia, Rj, pj)
 
-        a0 = _spd_solve6(IA[0], -pA[0])
-        a = [a0]
-        qdd = []
-        for i in range(1, nb):
-            Rj, pj = jR[i], jp[i]
-            ap = a[parent[i]]
-            aw = _mtv(Rj, ap[:, :3])
-            au = _mtv(Rj, ap[:, 3:] + torch.linalg.cross(ap[:, :3],
-                                                         pj.expand_as(aw)))
-            a_in = torch.cat([aw, au], -1) + c_vp[i]
-            qdd_i = (u_[i] - (U[i] * a_in).sum(-1)) * d_inv[i]
-            qdd.append(qdd_i)
-            a.append(a_in + S[i] * qdd_i[:, None])
-        qdd = torch.stack(qdd, -1)
+            a0 = _spd_solve6(IA[0], -pA[0])
+            a = [a0]
+            qdd = []
+            for i in range(1, nb):
+                Rj, pj = jR[i], jp[i]
+                ap = a[parent[i]]
+                aw = _mtv(Rj, ap[:, :3])
+                au = _mtv(Rj, ap[:, 3:] + torch.linalg.cross(ap[:, :3],
+                                                             pj.expand_as(aw)))
+                a_in = torch.cat([aw, au], -1) + c_vp[i]
+                qdd_i = (u_[i] - (U[i] * a_in).sum(-1)) * d_inv[i]
+                qdd.append(qdd_i)
+                a.append(a_in + S[i] * qdd_i[:, None])
+            qdd = torch.stack(qdd, -1)
 
-        # base acceleration to world coordinates
-        R0 = R[0]
-        ang_acc_w = _mv(R0, a0[:, :3])
-        lin_acc_w = _mv(R0, a0[:, 3:] + torch.linalg.cross(v[0][:, :3],
-                                                           v[0][:, 3:]))
+            # base acceleration to world coordinates
+            R0 = R[0]
+            ang_acc_w = _mv(R0, a0[:, :3])
+            lin_acc_w = _mv(R0, a0[:, 3:] + torch.linalg.cross(
+                v[0][:, :3], v[0][:, 3:]))
 
         # ---------------- integrate (semi-implicit) ----------------
-        # base velocity clamps bound a near-singular base solve's damage to
-        # one recoverable-or-terminated step instead of an inf->NaN cascade
-        lin = torch.clamp(qd[:, 0:3] + lin_acc_w * dt, -mv, mv)
-        ang = torch.clamp(qd[:, 3:6] + ang_acc_w * dt, -mv, mv)
-        joints_v = torch.clamp(qdj + dt * qdd, -params.max_joint_vel,
-                               params.max_joint_vel)
-        q_new = torch.cat([q[:, 0:3] + lin * dt,
-                           _integrate_quat(q[:, 3:7], ang, dt),
-                           qj + dt * joints_v], -1)
-        qd_new = torch.cat([lin, ang, joints_v], -1)
+        with spans.span("sim.integrate"):
+            # base velocity clamps bound a near-singular base solve's
+            # damage to one recoverable-or-terminated step instead of an
+            # inf->NaN cascade
+            lin = torch.clamp(qd[:, 0:3] + lin_acc_w * dt, -mv, mv)
+            ang = torch.clamp(qd[:, 3:6] + ang_acc_w * dt, -mv, mv)
+            joints_v = torch.clamp(qdj + dt * qdd, -params.max_joint_vel,
+                                   params.max_joint_vel)
+            q_new = torch.cat([q[:, 0:3] + lin * dt,
+                               _integrate_quat(q[:, 3:7], ang, dt),
+                               qj + dt * joints_v], -1)
+            qd_new = torch.cat([lin, ang, joints_v], -1)
 
-        # ---------------- box integration (Newton-Euler) ----------------
-        bx_new = None
-        if bx is not None:
-            bq, bqd, m_box, i_d = bx
-            Rb = maths.quat_to_mat(bq[:, 3:7])
-            I_w = (Rb * i_d[:, None, :]) @ Rb.transpose(-1, -2)
-            wb = bqd[:, 3:]
-            gyro = torch.linalg.cross(wb, _mv(I_w, wb))
-            wd = _solve3(I_w, box_N.T - gyro)
-            lin_acc = gvec + box_F.T * (1.0 / m_box)[:, None]
-            b_lin = torch.clamp(bqd[:, :3] + lin_acc * dt, -mv, mv)
-            b_ang = torch.clamp(wb + wd * dt, -mv, mv)
-            bx_new = (torch.cat([bq[:, :3] + b_lin * dt,
-                                 _integrate_quat(bq[:, 3:7], b_ang, dt)], -1),
-                      torch.cat([b_lin, b_ang], -1), m_box, i_d)
+            # -------------- box integration (Newton-Euler) --------------
+            bx_new = None
+            if bx is not None:
+                bq, bqd, m_box, i_d = bx
+                Rb = maths.quat_to_mat(bq[:, 3:7])
+                I_w = (Rb * i_d[:, None, :]) @ Rb.transpose(-1, -2)
+                wb = bqd[:, 3:]
+                gyro = torch.linalg.cross(wb, _mv(I_w, wb))
+                wd = _solve3(I_w, box_N.T - gyro)
+                lin_acc = gvec + box_F.T * (1.0 / m_box)[:, None]
+                b_lin = torch.clamp(bqd[:, :3] + lin_acc * dt, -mv, mv)
+                b_ang = torch.clamp(wb + wd * dt, -mv, mv)
+                bx_new = (torch.cat([bq[:, :3] + b_lin * dt,
+                                     _integrate_quat(bq[:, 3:7], b_ang, dt)],
+                                    -1),
+                          torch.cat([b_lin, b_ang], -1), m_box, i_d)
         return q_new, qd_new, gF, cf_new, bx_new
 
     def step(q, qd, tau_fn, mass, com, inertia, friction, n_steps,

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from . import spans
+
 
 def resolve_device(device="cuda") -> torch.device:
     """The torch.device an entry point runs on.
@@ -24,3 +26,18 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def on_card(x) -> bool:
+    """Whether `x`, a tensor or a device, is on a CUDA device."""
+    return (x.device if torch.is_tensor(x) else torch.device(x)).type == "cuda"
+
+
+def host_sync(x, n: int = 1) -> None:
+    """Count `n` points where the host waits for the card (the counter
+    `host_sync` of utils/spans) when `x`, a tensor or a device, is on one:
+    a read of a device value (`.item()`, `.tolist()`), or a copy from
+    host memory that is not pinned (`torch.tensor(..., device=...)`, an
+    index given as a Python list), which waits for the card's stream."""
+    if on_card(x):
+        spans.count("host_sync", n)

@@ -12,6 +12,7 @@ from typing import Callable, Dict, NamedTuple
 
 from ..envs import legged_config as lc
 from ..rl import ppo as ppo_lib
+from . import spans
 
 
 class TaskSpec(NamedTuple):
@@ -123,20 +124,22 @@ def make_runner(task: str, num_envs=None, seed: int = 1, log_dir=None,
     cfg and seed (the same terrain on every rank); `env` is that shard."""
     from ..parallel import distributed as dist
     num_envs = dist.host_env_count(num_envs or TASKS[task].default_num_envs)
-    env, spec = make_env(task, num_envs, seed, device)
-    if env_setup is not None:
-        env_setup(env)
+    with spans.span("setup.env"):
+        env, spec = make_env(task, num_envs, seed, device)
+        if env_setup is not None:
+            env_setup(env)
     if ppo_overrides:
         spec = spec._replace(
             ppo_cfg=dataclasses.replace(spec.ppo_cfg, **ppo_overrides))
-    if spec.policy_class_name == "ActorCriticRecurrent":
-        from ..rl.recurrent import RecurrentRunner
-        runner = RecurrentRunner(env, spec.ppo_cfg,
-                                 num_steps_per_env=spec.num_steps_per_env,
-                                 seed=seed, log_dir=log_dir)
-    else:
-        from ..rl.runner import OnPolicyRunner
-        runner = OnPolicyRunner(env, spec.ppo_cfg,
-                                num_steps_per_env=spec.num_steps_per_env,
-                                log_dir=log_dir, seed=seed)
+    with spans.span("setup.runner"):
+        if spec.policy_class_name == "ActorCriticRecurrent":
+            from ..rl.recurrent import RecurrentRunner
+            runner = RecurrentRunner(
+                env, spec.ppo_cfg, num_steps_per_env=spec.num_steps_per_env,
+                seed=seed, log_dir=log_dir)
+        else:
+            from ..rl.runner import OnPolicyRunner
+            runner = OnPolicyRunner(
+                env, spec.ppo_cfg, num_steps_per_env=spec.num_steps_per_env,
+                log_dir=log_dir, seed=seed)
     return env, runner, spec

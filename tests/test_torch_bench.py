@@ -5,7 +5,6 @@ count against the root bench.py's formula over the JAX env's state, and
 its analytic operation count against torch's FlopCounterMode."""
 
 import json
-import os
 import statistics
 import sys
 
@@ -52,23 +51,19 @@ def one_torch_thread():
 
 
 @pytest.mark.parametrize("tasks", ["go1,go1_flat_lstm", "go1_flat_lstm,go1"])
-def test_cpu_line(tasks, capsys, tmp_path):
+def test_cpu_line(tasks, capsys):
     """Two tasks (the MLP runner and the recurrent one) at 16 envs x 2
-    steps, two interleaved windows of one iteration each, the first task
-    traced."""
+    steps, two interleaved windows of one iteration each."""
     ret = bench.main(["--cpu", "--task", tasks, "--num_envs", "16",
                       "--steps", "2", "--warmup", "1", "--iters", "1",
-                      "--repeats", "2", "--trace", str(tmp_path)])
+                      "--repeats", "2"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line == json.loads(json.dumps(ret))
     assert TASK_KEYS - {"steps", "iters"} <= set(line)
     assert line["device"] == dict(platform="cpu", name="cpu",
                                   power_limit_w=None, count=1)
     assert [t["task"] for t in line["tasks"]] == tasks.split(",")
-    trace = line["trace"]
-    assert trace["task"] == tasks.split(",")[0] and trace["wall_s"] > 0
-    assert os.path.getsize(trace["file"]) > 0
-    assert trace["device_busy_share"] is trace["top_device_ops"] is None
+    assert "trace" not in line
     for t in line["tasks"]:
         assert set(t) == TASK_KEYS | {"task"}
         assert set(t["contact_kernel"]) == KERNEL_KEYS

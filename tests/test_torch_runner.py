@@ -30,6 +30,12 @@ BASE_KEYS = [
     "Episode/step_base_height_rel", "Episode/step_z_margin_low",
     "Episode/step_vel_x", "Episode/step_cmd_x",
 ]
+# the iteration's span seconds and host synchronisations (utils/spans)
+SPAN_KEYS = ["Perf/host_syncs"] + ["Perf/span/" + k for k in (
+    "runner.collect", "rollout.policy", "env.physics", "env.post", "sim.fk",
+    "sim.contact", "sim.aba", "sim.integrate", "runner.learn")]
+DAGGER_SPAN_KEYS = ["Perf/span/ppo.dagger_minibatch"]
+PPO_SPAN_KEYS = ["Perf/span/ppo.gae", "Perf/span/ppo.minibatch"]
 DAGGER_LOSS_KEYS = ["Loss/hist_latent_loss"]
 PPO_LOSS_KEYS = [
     "Loss/value_loss", "Loss/surrogate_loss", "Loss/priv_reg_loss",
@@ -86,8 +92,10 @@ def test_metrics_jsonl_has_the_jax_runners_keys(trained):
     episode = (["Episode/rew_" + k
                 for k in env.reward_names + env.arm_reward_names]
                + ["Episode/metric_" + k for k in env.metric_names])
-    assert set(lines[0]) == set(BASE_KEYS + episode + DAGGER_LOSS_KEYS)
-    assert set(lines[1]) == set(BASE_KEYS + episode + PPO_LOSS_KEYS)
+    assert set(lines[0]) == set(BASE_KEYS + episode + DAGGER_LOSS_KEYS
+                                + SPAN_KEYS + DAGGER_SPAN_KEYS)
+    assert set(lines[1]) == set(BASE_KEYS + episode + PPO_LOSS_KEYS
+                                + SPAN_KEYS + PPO_SPAN_KEYS)
     for line in lines:
         assert line["Perf/total_fps"] > 0
         for k, v in line.items():
