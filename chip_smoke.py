@@ -14,7 +14,9 @@
 
 Phases, each of which raises on failure (exit code != 0):
   1. the card's name and power limit (nvidia-smi);
-  2. build: compiles the contact kernel from dwbc_tpu_torch/csrc with nvcc;
+  2. build: compiles the contact and the ABA kernels from
+     dwbc_tpu_torch/csrc with nvcc and logs ptxas's register and spill
+     report; the ABA kernel must not spill;
   3. kernels: the CUDA contact kernel against its plain PyTorch version on
      the card (`active` exact, the forces within the parity tolerances) at
      KERNEL_SHAPES: widowGo1's 84 spheres on 21 bodies x 8192 envs (the
@@ -32,6 +34,15 @@ Phases, each of which raises on failure (exit code != 0):
      host time; beside them two yardsticks: the kernel on one input set
      (L2 warm) and one device copy that moves the same bytes (`copy_`,
      not a port of the law);
+  3b. aba kernel: ops/aba_kernel.aba against sim/aba.fused_aba on the same
+     card tensors at ABA_SHAPES (widowGo1's 21 bodies at 5000 and 8192
+     envs, go1's 13 at 4096, both at play's 5), random states with joints
+     past their limits, resting and fast joints, contact wrenches on every
+     body, and one env whose base block falls under the 1e-6 pivot floor:
+     every output finite and within relative 1e-5, one launch counted per
+     call. Per shape: its device time per launch (CUDA graph over N_SETS
+     input sets), the plain version's device time and both host times per
+     call, and the byte bound of those inputs at 3.35 TB/s;
   4. step check: one widowGo1 env step on the card (the kernel) against
      the same step on the CPU (the plain law), 64 envs, same state;
   5. slice: make_env("widowGo1", 8192 envs) on the full Perlin terrain, an
@@ -130,7 +141,11 @@ Phases, each of which raises on failure (exit code != 0):
      `_osc_target` call at 1024 envs with solve_spd's pivot-floored
      factorisation and with the raising Cholesky it replaced, in turns.
 Every env a phase builds must have its (spheres, bodies, envs) among
-KERNEL_SHAPES. The last two lines are the kernels' JSON record and
+KERNEL_SHAPES. Every phase that steps an env on the card zeroes both
+kernels' launch counts first and requires the contact and the ABA kernel
+to have launched once per physics substep each (launches_since_reset).
+The last two lines are the kernels' JSON record (contact_law and aba:
+launches on the main path, device and plain ms, bound) and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Results are also written to chiprun_out/chip_smoke.json.
 """
@@ -144,6 +159,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -180,6 +196,13 @@ KERNEL_SHAPES = ((84, 21, NUM_ENVS, True), (84, 21, VARIANT_ENVS, True),
                  (92, 13, LEGGED_ENVS // 2, True),
                  # widowGo1_flat's and widowGo1_adaptive's learning curves
                  (84, 21, LEGGED_ENVS, True), (84, 21, LEGGED_ENVS // 2, True))
+# (tree, envs) of the ABA kernel's check: the benchmark's widowGo1 and go1
+# cells, the slice and train phases' width, play's 5 envs (one partial
+# block); the first is the kernels line's main shape
+ABA_SHAPES = (("widowGo1", 5000), ("widowGo1", NUM_ENVS),
+              ("go1", LEGGED_ENVS), ("widowGo1", PLAY_ENVS),
+              ("go1", PLAY_ENVS))
+ABA_RTOL = 1e-5
 
 
 def log(msg):
@@ -196,6 +219,133 @@ def host_us(fn, args, calls=20):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / calls * 1e6
+
+
+def reset_launches():
+    """Zero both hand kernels' launch counts before a main-path phase."""
+    from dwbc_tpu_torch.ops.aba_kernel import aba
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    contact_law.launches = 0
+    aba.launches = 0
+
+
+def launches_since_reset(what, expect=None):
+    """The launches of the contact and the ABA kernel since
+    reset_launches(): one each per physics substep, so the two counts must
+    agree, and equal `expect` where it is given. Returns the count."""
+    from dwbc_tpu_torch.ops.aba_kernel import aba
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    got = (contact_law.launches, aba.launches)
+    want = got[0] if expect is None else expect
+    if got != (want, want):
+        raise AssertionError(f"{what} launched the contact kernel {got[0]} "
+                             f"and the ABA kernel {got[1]} times, expected "
+                             f"{want} each")
+    return want
+
+
+def build_phase():
+    """Phase 2: compile both hand kernels with nvcc (force) and log ptxas's
+    register and spill report; raises where the ABA kernel spills."""
+    from dwbc_tpu_torch.ops import aba_kernel, contact_kernel
+    for mod, spill_free in ((contact_kernel, False), (aba_kernel, True)):
+        t0 = time.time()
+        report = mod.build(force=True)
+        log(f"build: {os.path.relpath(mod.SOURCE, ROOT)} -> "
+            f"{os.path.relpath(mod.LIBRARY, ROOT)} in "
+            f"{time.time() - t0:.2f} s")
+        for line in report.splitlines():
+            if any(w in line for w in ("properties", "registers", "spill")):
+                log(f"  ptxas: {line.strip()}")
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill", report)]
+        if spill_free and (not spills or any(spills)):
+            raise AssertionError(f"{os.path.basename(mod.SOURCE)}: spill "
+                                 f"bytes {spills} in ptxas's report")
+
+
+def rel_err(got, want):
+    """Norm of the difference over the norm of `want`, in float64."""
+    return float(torch.linalg.vector_norm((got - want).double())
+                 / torch.linalg.vector_norm(want.double()))
+
+
+def aba_phase(device, shapes=ABA_SHAPES):
+    """Phase 3b: the ABA kernel (ops/aba_kernel.aba) against its plain
+    version (sim/aba.fused_aba) on the same card tensors at ABA_SHAPES,
+    over N_SETS random states per shape; in the first, the last env's
+    masses and inertias are 1e-9 of the model's, so that its base block's
+    pivots fall under the solve's 1e-6 floor. Each output within ABA_RTOL
+    (rel_err) over the regular envs and over that env alone, finite, and
+    one launch counted per call. Then, per shape: the kernel's device time
+    per launch (a CUDA graph rotating over the sets), the plain version's
+    device time and both host times per call, and the byte bound of these
+    inputs (measure.aba_bytes) at the HBM rate."""
+    from dwbc_tpu_torch.ops.aba_kernel import aba
+    from dwbc_tpu_torch.sim.aba import fused_aba, tree_const
+    from dwbc_tpu_torch.sim.engine import SimParams
+    from dwbc_tpu_torch.utils.measure import (
+        HBM_BYTES_PER_S, aba_args, aba_bytes, aba_model, random_aba_state)
+
+    trees, rows = {}, []
+    for name, n in shapes:
+        if name not in trees:
+            m, i_eff = aba_model(name)
+            trees[name] = m, tree_const(m, SimParams(), i_eff, device)
+        m, tc = trees[name]
+        tag = f"{name} nb={m.nb} N={n}"
+        floor_env = n - 1
+        sets = []
+        for i in range(N_SETS):
+            s = random_aba_state(m, n, seed=1000 * n + i)
+            if i == 0:
+                s["mass"][floor_env] *= 1e-9
+                s["inertia"][floor_env] *= 1e-9
+            sets.append((tc, *aba_args(m, s, device)[0]))
+        regular = torch.arange(n, device=device) != floor_env
+        err = floor_err = 0.0
+        for i, args in enumerate(sets):
+            want = fused_aba(*args)
+            before = aba.launches
+            got = aba(*args)
+            torch.cuda.synchronize()
+            if aba.launches != before + 1:
+                raise AssertionError(f"aba {tag}: {aba.launches - before} "
+                                     f"launches counted for one call")
+            groups = ([("regular envs", regular),
+                       ("the pivot-floor env", ~regular)] if i == 0
+                      else [("all envs", torch.ones_like(regular))])
+            for part, g, w in zip(("qdd", "ang_acc", "lin_acc"), got, want):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"aba {tag} set {i}: non-finite "
+                                         f"{part}")
+                for label, mask in groups:
+                    e = rel_err(g[mask], w[mask])
+                    if not e < ABA_RTOL:
+                        raise AssertionError(
+                            f"aba {tag} set {i} {part} over {label}: "
+                            f"relative error {e:.3g} >= {ABA_RTOL}")
+                    if label == "the pivot-floor env":
+                        floor_err = max(floor_err, e)
+                    else:
+                        err = max(err, e)
+        ms = device_ms(aba, sets, TIMED_LAUNCHES)
+        plain_ms = device_ms(fused_aba, sets, PLAIN_LAUNCHES)
+        wrapper_us = host_us(aba, sets[0])
+        plain_us = host_us(fused_aba, sets[0], calls=5)
+        nbytes = aba_bytes(sets[0][1:], tc.table)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = dict(tree=name, nb=m.nb, n=n, max_rel_err=err,
+                   pivot_floor_rel_err=floor_err, ms=ms, plain_ms=plain_ms,
+                   host_us=wrapper_us, plain_host_us=plain_us,
+                   bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
+                   share_of_bound=bound_ms / ms)
+        log(f"kernel aba {tag}: max_rel_err={err:.3g} (pivot-floor env "
+            f"{floor_err:.3g}) ms={ms:.5f} ({row['share_of_bound']:.1%} of "
+            f"the bound) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
+            f"({nbytes / 1e6:.2f} MB, bytes); wrapper host "
+            f"{wrapper_us:.1f} us/call, plain host {plain_us:.0f} us/call")
+        rows.append(row)
+    return rows
 
 
 def kernel_phase(device, shapes=KERNEL_SHAPES):
@@ -300,7 +450,6 @@ def step_check(device):
 
 def slice_phase(device, profile):
     from dwbc_tpu_torch.models.actor_critic import ActorCritic
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.rl.runner import Rollout, init_at_random_ep_len
     from dwbc_tpu_torch.utils import task_registry
 
@@ -324,19 +473,15 @@ def slice_phase(device, profile):
     results = []
     total_launches = 0
     for counter, hist in ((1.0, True), (2.0, False)):
-        contact_law.launches = 0
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.time()
         state, obs, traj, stats, nres = rollout.collect(state, obs, counter,
                                                         noise, hist)
         torch.cuda.synchronize()
         secs = time.time() - t0
-        launches = contact_law.launches
+        launches = launches_since_reset("collect", NUM_STEPS * DECIMATION)
         total_launches += launches
-        expect = NUM_STEPS * DECIMATION
-        if launches != expect:
-            raise AssertionError(f"collect launched the contact kernel "
-                                 f"{launches} times, expected {expect}")
         if tuple(traj.obs.shape) != (NUM_STEPS, NUM_ENVS, env.num_obs):
             raise AssertionError(f"traj.obs shape {tuple(traj.obs.shape)}")
         if tuple(traj.rewards.shape) != (NUM_STEPS, NUM_ENVS, 2):
@@ -448,11 +593,10 @@ def profile_learn_step(runner, dagger, device):
 def train_phase(device, profile):
     """Three training iterations of widowGo1 at 8192 envs through
     OnPolicyRunner, then a checkpoint round trip."""
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.utils import task_registry
 
     log_dir = fresh_dir("train_smoke")
-    contact_law.launches = 0
+    reset_launches()
     t0 = time.time()
     env, runner, spec = task_registry.make_runner(
         "widowGo1", num_envs=NUM_ENVS, seed=1, log_dir=log_dir, device=device)
@@ -484,11 +628,7 @@ def train_phase(device, profile):
             learn_s=runner.last_learn_time,
             fps=NUM_STEPS * NUM_ENVS / (runner.last_collection_time
                                         + runner.last_learn_time)))
-    launches = contact_law.launches
-    expect = 3 * NUM_STEPS * DECIMATION
-    if launches != expect:
-        raise AssertionError(f"training launched the contact kernel "
-                             f"{launches} times, expected {expect}")
+    launches = launches_since_reset("training", 3 * NUM_STEPS * DECIMATION)
     if runner.ppo_state.counter != 3 or runner.it != 3:
         raise AssertionError(f"counter {runner.ppo_state.counter}, "
                              f"it {runner.it}")
@@ -639,23 +779,18 @@ def bf16_update_check(device):
 def variant_train(device, n):
     """Two training iterations of widowGo1_adaptive (adaptive arm gains +
     OSC torque supervision) at n envs: (results, kernel launches)."""
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.utils import task_registry
 
     log_dir = fresh_dir(f"variant_smoke_{n}")
-    contact_law.launches = 0
+    reset_launches()
     gc.collect()    # the earlier phases' runners, before the peak is read
     torch.cuda.reset_peak_memory_stats()
     env, runner, spec = task_registry.make_runner(
         "widowGo1_adaptive", num_envs=n, seed=1, log_dir=log_dir,
         device=device)
     runner.learn(2, log_every=1)
-    launches = contact_law.launches
+    launches = launches_since_reset("the variant", 2 * NUM_STEPS * DECIMATION)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expect = 2 * NUM_STEPS * DECIMATION
-    if launches != expect:
-        raise AssertionError(f"the variant launched the contact kernel "
-                             f"{launches} times, expected {expect}")
     tgt = runner.last_traj.target_arm_torques
     if tuple(tgt.shape) != (NUM_STEPS, n, 6):
         raise AssertionError(f"target_arm_torques shape {tuple(tgt.shape)}")
@@ -741,11 +876,10 @@ def legged_train(device, task, iterations):
     """`iterations` training iterations of a single-head task at 4096
     envs x 24 steps through make_runner / OnPolicyRunner.learn, one call
     of learn each: (env, runner, log_dir, per-iteration rows, launches)."""
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.utils import task_registry
 
     log_dir = fresh_dir(f"{task}_smoke")
-    contact_law.launches = 0
+    reset_launches()
     t0 = time.time()
     env, runner, spec = task_registry.make_runner(
         task, num_envs=LEGGED_ENVS, seed=1, log_dir=log_dir, device=device)
@@ -776,11 +910,8 @@ def legged_train(device, task, iterations):
             if not bool(torch.isfinite(t).all()):
                 raise AssertionError(f"{task} iteration {it}: non-finite "
                                      f"{name}")
-    launches = contact_law.launches
-    expect = iterations * LEGGED_STEPS * DECIMATION
-    if launches != expect:
-        raise AssertionError(f"{task} launched the contact kernel "
-                             f"{launches} times, expected {expect}")
+    launches = launches_since_reset(task,
+                                    iterations * LEGGED_STEPS * DECIMATION)
     for k, v in model_snapshot(runner.model).items():
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{task}: non-finite {k}")
@@ -956,12 +1087,11 @@ def actuator_phase(device):
 def recurrent_phase(device):
     """go1_flat_lstm through RecurrentRunner at 4096 envs: two iterations
     of learn, a third by hand to time collect and update apart."""
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.rl.recurrent import RecurrentRunner
     from dwbc_tpu_torch.utils import task_registry
 
     log_dir = fresh_dir("go1_flat_lstm_smoke")
-    contact_law.launches = 0
+    reset_launches()
     env, runner, spec = task_registry.make_runner(
         "go1_flat_lstm", num_envs=LEGGED_ENVS, seed=1, log_dir=log_dir,
         device=device)
@@ -989,11 +1119,8 @@ def recurrent_phase(device):
                                 runner.perm_gen)
     torch.cuda.synchronize()
     update_s = time.time() - t0
-    launches = contact_law.launches
-    expect = 3 * LEGGED_STEPS * DECIMATION
-    if launches != expect:
-        raise AssertionError(f"go1_flat_lstm launched the contact kernel "
-                             f"{launches} times, expected {expect}")
+    launches = launches_since_reset("go1_flat_lstm",
+                                    3 * LEGGED_STEPS * DECIMATION)
     if tuple(traj.obs.shape) != (LEGGED_STEPS, LEGGED_ENVS, 48):
         raise AssertionError(f"traj.obs shape {tuple(traj.obs.shape)}")
     for name, t in (("obs", traj.obs), ("rewards", traj.rewards),
@@ -1094,7 +1221,6 @@ def recurrent_update_check(device):
 def deploy_phase(device, task, ckpt):
     """Export `task`'s checkpoint on the card, hold both programs against
     the live model, and play the policy program: (results, launches)."""
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.runner import export, play
     from dwbc_tpu_torch.utils import task_registry
 
@@ -1126,14 +1252,11 @@ def deploy_phase(device, task, ckpt):
 
     check_kernel_shape(env, PLAY_ENVS)
     npz = os.path.join(out_dir, "play_traj.npz")
-    contact_law.launches = 0
+    reset_launches()
     summary = play.play(task, checkpoint=ckpt, num_envs=PLAY_ENVS,
                         steps=PLAY_STEPS, use_jit=out_dir, out=npz,
                         device=device, plot=False)
-    launches = contact_law.launches
-    if launches != PLAY_STEPS * DECIMATION:
-        raise AssertionError(f"{task} play launched the contact kernel "
-                             f"{launches} times")
+    launches = launches_since_reset(f"{task} play", PLAY_STEPS * DECIMATION)
     data = np.load(npz)
     widow = task.startswith("widowGo1")
     want = {"q": (PLAY_STEPS, PLAY_ENVS, env.model.nq),
@@ -1234,6 +1357,7 @@ def two_rank_worker(rank, store, out_dir, device, num_envs):
     """One of the two ranks of phase 15 (this script run with
     --two-rank-worker): go1 on its half of `num_envs` envs, then its half
     of the update invariant. Writes rank<r>.npz into out_dir."""
+    from dwbc_tpu_torch.ops.aba_kernel import aba
     from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.parallel import distributed as dist
     from dwbc_tpu_torch.utils import task_registry
@@ -1241,7 +1365,7 @@ def two_rank_worker(rank, store, out_dir, device, num_envs):
     os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
     device = dist.initialize(backend="gloo", device=device,
                              init_method="file://" + store)
-    contact_law.launches = 0
+    reset_launches()
     env, runner, _ = task_registry.make_runner(
         "go1", num_envs=num_envs, seed=1,
         log_dir=os.path.join(out_dir, "run"), device=device)
@@ -1251,7 +1375,7 @@ def two_rank_worker(rank, store, out_dir, device, num_envs):
         check_kernel_shape(env)
     runner.learn(2, log_every=1)
     runner.close()
-    launches = contact_law.launches
+    launches = (contact_law.launches, aba.launches)
     params = torch.cat([p.detach().reshape(-1)
                         for p in runner.model.parameters()]).cpu().numpy()
     half = slice(rank * 32, rank * 32 + 32)
@@ -1301,9 +1425,11 @@ def two_rank_phase(device, num_envs=LEGGED_ENVS):
     if models != ["model_2"]:
         raise AssertionError(f"checkpoints {models}")
     rows = read_metrics(run, 2)
-    launches = [int(r["launches"]) for r in ranks]
-    if device.type == "cuda" and launches != [2 * LEGGED_STEPS * DECIMATION] * 2:
-        raise AssertionError(f"ranks launched the kernel {launches} times")
+    launches = [int(n) for r in ranks for n in r["launches"]]
+    expect = 2 * LEGGED_STEPS * DECIMATION
+    if device.type == "cuda" and launches != [expect] * 4:
+        raise AssertionError(f"ranks launched the (contact, ABA) kernels "
+                             f"{launches} times")
     single = update_invariant(device, slice(0, 64))
     err = 0.0
     for i, name in enumerate(("ff", "rnn")):
@@ -1324,20 +1450,22 @@ def two_rank_phase(device, num_envs=LEGGED_ENVS):
                 collect_s=[r["Perf/collection time"] for r in rows],
                 learn_s=[r["Perf/learning_time"] for r in rows],
                 wall_s=wall, update_max_abs_err=err,
-                launches=sum(launches)), sum(launches)
+                launches=sum(launches[::2])), sum(launches[::2])
 
 
 def nccl_worker(out_path, argv):
     """Phase 16's process under torchrun (this script run with
     --nccl-worker): the train CLI's main(argv), with the kernel's launch
-    count set to 0 just before it; writes the count."""
+    counts set to 0 just before it; writes the counts."""
+    from dwbc_tpu_torch.ops.aba_kernel import aba
     from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.runner import train
 
-    contact_law.launches = 0
+    reset_launches()
     train.main(argv)
     with open(out_path, "w") as f:
-        json.dump(dict(launches=contact_law.launches), f)
+        json.dump(dict(launches=contact_law.launches,
+                       aba_launches=aba.launches), f)
 
 
 def nccl_phase(single_fps):
@@ -1365,11 +1493,14 @@ def nccl_phase(single_fps):
         raise AssertionError(f"not an NCCL group of one: "
                              f"{res.stdout[-2000:]}")
     with open(out) as f:
-        launches = json.load(f)["launches"]
-    if launches != 2 * LEGGED_STEPS * DECIMATION:
+        counts = json.load(f)
+    launches = counts["launches"]
+    expect = 2 * LEGGED_STEPS * DECIMATION
+    if (launches, counts["aba_launches"]) != (expect, expect):
         raise AssertionError(f"the NCCL run launched the contact kernel "
-                             f"{launches} times, expected "
-                             f"{2 * LEGGED_STEPS * DECIMATION}")
+                             f"{launches} and the ABA kernel "
+                             f"{counts['aba_launches']} times, expected "
+                             f"{expect} each")
     fps = [r["Perf/total_fps"] for r in rows]
     log(f"NCCL, world size 1 (torchrun --standalone --nproc_per_node=1, "
         f"train CLI): go1 x {LEGGED_ENVS} Perf/total_fps {fps} vs "
@@ -1457,11 +1588,10 @@ def harness_phase(extra_args=()):
     import contextlib
     import io
     from dwbc_tpu_torch import bench
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
 
     gc.collect()
     torch.cuda.empty_cache()
-    contact_law.launches = 0
+    reset_launches()
     buf = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
@@ -1470,7 +1600,6 @@ def harness_phase(extra_args=()):
                     str(HARNESS_ITERS), "--repeats", str(HARNESS_REPEATS),
                     *extra_args])
     wall = time.time() - t0
-    launches = contact_law.launches
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
     if line["device"]["name"] != torch.cuda.get_device_name(0):
         raise AssertionError(f"harness device {line['device']} is not "
@@ -1520,9 +1649,7 @@ def harness_phase(extra_args=()):
             f"{k['ms']:.5f} ms ({k['share_of_bound']:.1%} of "
             f"{k['bound_ms']:.5f} ms), plain {k['plain_ms']:.4f} ms, "
             f"{k['launches_per_iter']:.0f} launches per iteration")
-    if launches != expect:
-        raise AssertionError(f"the harness launched the contact kernel "
-                             f"{launches} times, expected {expect}")
+    launches = launches_since_reset("the harness", expect)
     log(f"harness: bench.main in process, {launches} launches, {wall:.1f} s; "
         f"device {line['device']}")
     return dict(line=line, wall_s=wall, launches=launches), launches
@@ -1546,7 +1673,6 @@ def repairs_phase(device, n=VARIANT_ENVS):
     time of one _osc_target call at n envs with the current solve_spd and
     with the Cholesky one it replaced, in turns: (results, launches)."""
     from dwbc_tpu_torch.core import maths, urdf
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.sim import dynamics
     from dwbc_tpu_torch.terrain import terrain
     from dwbc_tpu_torch.utils import task_registry
@@ -1604,9 +1730,9 @@ def repairs_phase(device, n=VARIANT_ENVS):
     poisoned = 5
     state.robot.qd[poisoned] = float("nan")
     actions = torch.zeros((n, env.num_actions), device=device)
-    contact_law.launches = 0
+    reset_launches()
     state2, out = env.step(state, actions, 3.0)
-    launches = contact_law.launches
+    launches = launches_since_reset("the NaN env's step", DECIMATION)
     torch.cuda.synchronize()
     others = torch.arange(n, device=device) != poisoned
     if not bool(out.reset[poisoned]) or int(out.episode_stats["term_bad"]) < 1:
@@ -1619,8 +1745,6 @@ def repairs_phase(device, n=VARIANT_ENVS):
     if not bool(torch.isfinite(out.extras["target_arm_torques"][others])
                 .all()):
         raise AssertionError("OSC targets non-finite outside the NaN env")
-    if launches != DECIMATION:
-        raise AssertionError(f"{launches} launches in one env step")
 
     state, _ = env.reset(gen)
     env._osc_target(state)
@@ -1665,7 +1789,6 @@ def learning_curve(iterations, task="go1_flat", train_args=()):
     the JAX runs' values and its band, and writes
     chiprun_out/learning_curve_<key>[_seed<k>].json. Exits 1 if a value is
     out of its band (after writing everything)."""
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
     from dwbc_tpu_torch.runner import train
     from dwbc_tpu_torch.utils import task_registry
     from dwbc_tpu_torch.utils.measure import (CURVES, compare_curves,
@@ -1693,7 +1816,7 @@ def learning_curve(iterations, task="go1_flat", train_args=()):
             kernel_rows.extend(kernel_phase(
                 env.device, [s for s in KERNEL_SHAPES if s[:3] == shape
                              and s[3]]))
-            contact_law.launches = 0
+            reset_launches()
             physics = env.fused_step
 
             @functools.wraps(physics)   # keeps its attributes (.fk)
@@ -1725,7 +1848,7 @@ def learning_curve(iterations, task="go1_flat", train_args=()):
         task_registry.make_runner = make_runner
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = contact_law.launches
+    launches = launches_since_reset(key)
     n_bad = int(torch.stack(blown).sum()) if blown else 0
     curve = read_curve(os.path.join(run_dir, "metrics.jsonl"))
     rows = [curve[it] for it in sorted(curve)]
@@ -1804,7 +1927,6 @@ def main():
             task, rest = rest[1], rest[2:]
         learning_curve(int(sys.argv[2]), task, rest)
         return
-    from dwbc_tpu_torch.ops import contact_kernel
     from dwbc_tpu_torch.utils.device import resolve_device
 
     device = resolve_device("cuda")
@@ -1813,16 +1935,9 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.time()
-    report = contact_kernel.build(force=True)
-    log(f"build: {os.path.relpath(contact_kernel.SOURCE, ROOT)} -> "
-        f"{os.path.relpath(contact_kernel.LIBRARY, ROOT)} in "
-        f"{time.time() - t0:.2f} s")
-    for line in report.splitlines():
-        if any(w in line for w in ("properties", "registers", "spill")):
-            log(f"  ptxas: {line.strip()}")
-
+    build_phase()
     rows = kernel_phase(device)
+    aba_rows = aba_phase(device)
     step_check(device)
     collects, launches = slice_phase(device, profile)
     training, n = train_phase(device, profile)
@@ -1887,9 +2002,26 @@ def main():
                                    "plain_ms", "bound_ms", "bound_by",
                                    "share_of_bound", "max_abs_err")}
                 for r in rows])]
+    # every main-path phase counted the ABA kernel's launches beside the
+    # contact kernel's and held the two equal (launches_since_reset)
+    aba_row = aba_rows[0]
+    kernels.append(dict(
+        name="aba", route="cuda", source="dwbc_tpu_torch/csrc/aba.cu",
+        replaces=None, launches=launches,
+        max_rel_err=max(r["max_rel_err"] for r in aba_rows),
+        pivot_floor_rel_err=max(r["pivot_floor_rel_err"] for r in aba_rows),
+        ms=aba_row["ms"], plain_ms=aba_row["plain_ms"],
+        bound_ms=aba_row["bound_ms"], bound_by=aba_row["bound_by"],
+        library_ms=None, share_of_bound=aba_row["share_of_bound"],
+        shapes=[{k: r[k] for k in ("tree", "nb", "n", "ms", "plain_ms",
+                                   "host_us", "plain_host_us", "bound_ms",
+                                   "share_of_bound", "max_rel_err",
+                                   "pivot_floor_rel_err")}
+                for r in aba_rows]))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, kernel_rows=rows,
+                       aba_rows=aba_rows,
                        collects=collects, training=training,
                        update_check_max_abs_err=update_err,
                        bf16_update_check=dict(

@@ -19,19 +19,15 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import Optional
 
 import torch
 
 from ..sim.contact import ContactParams, GeomConst, fused_terrain_law
-from ..utils import spans
+from . import nvcc
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "contact_law.cu")
-LIBRARY = os.path.join(_PKG, "build", "libcontact_law.so")
+SOURCE = os.path.join(nvcc.CSRC, "contact_law.cu")
+LIBRARY = os.path.join(nvcc.BUILD, "libcontact_law.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
@@ -42,45 +38,17 @@ NB_MAX = 32
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin): cannot build the contact "
-                           "kernel")
-    return path
-
-
 def build(force: bool = False) -> str:
     """Compile csrc/contact_law.cu into LIBRARY if it is missing, older
     than its source, or `force`; returns nvcc's output (ptxas register and
     spill report) or "" when the library was up to date."""
-    if (not force and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return ""
-    os.makedirs(os.path.dirname(LIBRARY), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(LIBRARY))
-    os.close(fd)
-    try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}{res.stderr}")
-        os.replace(tmp, LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return res.stdout + res.stderr
+    return nvcc.build(SOURCE, LIBRARY, NVCC_FLAGS, force)
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        with spans.span("setup.native"):
-            build()
-            lib = ctypes.CDLL(LIBRARY)
+        lib = nvcc.load(SOURCE, LIBRARY, NVCC_FLAGS)
         fn = lib.dwbc_contact_law
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 3

@@ -9,8 +9,10 @@ the same math runs on batched tensors instead — (N, 3, 3) rotations,
 Python loop over the static kinematic tree's bodies, and the contact
 arrays keep the law's (ng, N) layout ((3, ng, N) for 3-vectors).
 
-The terrain contact law runs through ops/contact_kernel.contact_law: the
-CUDA kernel on the card, the plain law (sim/contact.py) on the CPU.
+The terrain contact law runs through ops/contact_kernel.contact_law and
+the articulated-body algorithm through ops/aba_kernel.aba: on the card
+each is one CUDA kernel launch per substep, on the CPU the plain version
+(sim/contact.py, sim/aba.py).
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ import torch
 
 from ..core import maths, spatial
 from ..core.model import RobotModel
+from ..ops.aba_kernel import aba
 from ..ops.contact_kernel import contact_law
 from ..terrain.terrain import Heightfield
 from ..utils import spans
 from ..utils.device import resolve_device
+from .aba import joint_frame, tree_const
 from .contact import GeomConst, m_dir
 from .engine import PhysCtx, SimParams
 
@@ -81,47 +85,6 @@ def _integrate_quat(quat, ang, dt):
     return torch.stack([nx * inv, ny * inv, nz * inv, nw * inv], -1)
 
 
-def _transform_abi(Ia, Rj, pj):
-    """Parent-frame articulated-body inertia X_f Ia X_m for the joint frame
-    (Rj, pj), by Featherstone's block formula: with Ia = [[A, B], [B^T, D]],
-    D' = R D R^T, B' = R B R^T + p^ D', A' = R A R^T + p^ (R B^T R^T)
-    - (R B R^T) p^ - p^ D' p^ (p^ = skew(p))."""
-    A, B, D = Ia[:, :3, :3], Ia[:, :3, 3:], Ia[:, 3:, 3:]
-    Rt = Rj.transpose(-1, -2)
-    Ar = Rj @ A @ Rt
-    Br = Rj @ B @ Rt
-    Dr = Rj @ D @ Rt
-    P = spatial.skew(pj)
-    pDr = P @ Dr
-    Atl = (Ar + P @ Br.transpose(-1, -2)) - (Br @ P + pDr @ P)
-    Btr = Br + pDr
-    return torch.cat([torch.cat([Atl, Btr], -1),
-                      torch.cat([Btr.transpose(-1, -2), Dr], -1)], -2)
-
-
-def _spd_solve6(M, b):
-    """Solve M x = b for batched SPD 6x6 M (N, 6, 6), b (N, 6) by Cholesky
-    with a 1e-6 pivot floor: a pivot that small means a numerically
-    singular articulated inertia, where a bounded acceleration beats
-    1e12-scale garbage."""
-    L = torch.zeros_like(M)
-    for j in range(6):
-        Ljj = torch.sqrt(torch.clamp(
-            M[:, j, j] - (L[:, j, :j] * L[:, j, :j]).sum(-1), min=1e-6))
-        L[:, j, j] = Ljj
-        if j < 5:
-            L[:, j + 1:, j] = (M[:, j + 1:, j]
-                               - (L[:, j + 1:, :j] @ L[:, j, :j, None])[..., 0]
-                               ) / Ljj[:, None]
-    y = torch.empty_like(b)
-    for i in range(6):
-        y[:, i] = (b[:, i] - (L[:, i, :i] * y[:, :i]).sum(-1)) / L[:, i, i]
-    x = torch.empty_like(b)
-    for i in reversed(range(6)):
-        x[:, i] = (y[:, i] - (L[:, i + 1:, i] * x[:, i + 1:]).sum(-1)) / L[:, i, i]
-    return x
-
-
 def _solve3(M, b):
     """Solve M x = b for batched 3x3 M (N, 3, 3) via the adjugate (the
     box world-inertia solve: SPD, well-conditioned)."""
@@ -166,27 +129,8 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    nb, nj = model.nb, model.nj
-    parent = [int(p) for p in model.parent]
-    prismatic = [int(t) == 1 for t in model.joint_type]
-    axes = np.asarray(model.joint_axis, np.float64)
-    tree_rot = f32(model.tree_rot)
-    tree_pos = f32(model.tree_pos)
-    # motion subspaces: [axis; 0] revolute, [0; axis] prismatic
-    S = f32([np.concatenate([np.zeros(3), axes[i]]) if prismatic[i]
-             else np.concatenate([axes[i], np.zeros(3)]) for i in range(nb)])
-    # revolute joint rotation R(q) = c I + (1 - c) a a^T + s skew(a)
-    eye3 = torch.eye(3, device=dev)
-    axis_outer = f32([np.outer(a, a) for a in axes])
-    axis_skew = f32([[[0.0, -a[2], a[1]], [a[2], 0.0, -a[0]],
-                      [-a[1], a[0], 0.0]] for a in axes])
-    prism_dir = tree_rot @ f32(axes)[..., None]  # (nb, 3, 1)
-    armature = [float(a) for a in model.dof_armature]
-    damping = f32(model.dof_damping)
-    friction_j = f32(model.dof_friction)
-    dof_lo = f32(model.dof_lower)
-    dof_hi = f32(model.dof_upper)
-    i_eff = f32(ctx.dof_i_eff)
+    nb = model.nb
+    tc = tree_const(model, params, ctx.dof_i_eff, dev)
 
     ng = len(model.geom_body)
     geom_body_np = np.asarray(model.geom_body, np.int64)
@@ -210,7 +154,6 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
     E[gb, torch.arange(ng, device=dev)] = 1.0
     foot_list = [int(g) for g in foot_geoms]
     foot_idx = torch.as_tensor(foot_list, dtype=torch.long, device=dev)
-    gvec = f32(params.gravity)
     dt = params.dt
     cp = params.contact
     mv = params.max_base_vel
@@ -237,50 +180,39 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
                            for sz in (-1, 1)])            # (8, 3)
         bhe_col = f32(bhe)[:, None, None]
 
-    def joint_frame(i, qi):
-        """Pose (Rj (N, 3, 3), jp (N, 3) or (3,)) of body i in its parent."""
-        if prismatic[i]:
-            return (tree_rot[i].expand(qi.shape[0], 3, 3),
-                    tree_pos[i] + prism_dir[i, :, 0] * qi[:, None])
-        c = torch.cos(qi)[:, None, None]
-        s = torch.sin(qi)[:, None, None]
-        Ra = eye3 * c + axis_outer[i] * (1 - c) + axis_skew[i] * s
-        return tree_rot[i] @ Ra, tree_pos[i]
-
     def fk(q, qd=None):
         """Batched FK: per-body world (R, p) lists, and with qd the body
-        spatial velocities [ang; lin] in body coords plus joint frames."""
+        spatial velocities [ang; lin] in body coords."""
         R = [maths.quat_to_mat(q[:, 3:7])]
         p = [q[:, 0:3]]
-        v = jR = jp = None
+        v = None
         if qd is not None:
             v = [torch.cat([_mtv(R[0], qd[:, 3:6]), _mtv(R[0], qd[:, 0:3])],
                            -1)]
-            jR, jp = [None], [None]
         for i in range(1, nb):
-            Rj, pj = joint_frame(i, q[:, 6 + i])
-            pa = parent[i]
+            Rj, pj = joint_frame(tc, i, q[:, 6 + i])
+            pa = tc.parent[i]
             R.append(R[pa] @ Rj)
             p.append(_mv(R[pa], pj) + p[pa])
             if qd is not None:
                 wp, up = v[pa][:, :3], v[pa][:, 3:]
                 w_i = _mtv(Rj, wp)
                 u_i = _mtv(Rj, up + torch.linalg.cross(wp, pj.expand_as(wp)))
-                v.append(torch.cat([w_i, u_i], -1) + S[i] * qd[:, 5 + i, None])
-                jR.append(Rj)
-                jp.append(pj)
-        return R, p, v, jR, jp
+                v.append(torch.cat([w_i, u_i], -1)
+                         + tc.S[i] * qd[:, 5 + i, None])
+        return R, p, v
 
-    def geom_frames(R, p):
-        """Per-geom rotations (ng, N, 3, 3) and world offsets (ng, N, 3)."""
-        Rg = torch.stack(R)[gb]
+    def geom_frames(R_stack, p):
+        """Per-geom rotations (ng, N, 3, 3) and world offsets (ng, N, 3)
+        from the bodies' stacked rotations (nb, N, 3, 3)."""
+        Rg = R_stack[gb]
         return Rg, (Rg @ geom_off).squeeze(-1), torch.stack(p)[gb]
 
     def sample_terrain(q):
         """Tangent-plane cache (h (ng, N), normal (3, ng, N), ax, ay),
         sampled once per policy step by the plan above."""
-        R, p, *_ = fk(q)
-        Rg, r_w, pg = geom_frames(R, p)
+        R, p, _ = fk(q)
+        Rg, r_w, pg = geom_frames(torch.stack(R), p)
         foot_xy = (pg + r_w)[foot_idx][..., :2]               # (nf, N, 2)
         body_xy = torch.stack(p)[sample_bodies_t][..., :2]    # (nsb, N, 2)
         xy = torch.cat([body_xy, foot_xy], 0)
@@ -403,12 +335,14 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
                 box_cache):
         # ---------------- FK ----------------
         with spans.span("sim.fk"):
-            R, p, v, jR, jp = fk(q, qd)
+            R, p, v = fk(q, qd)
 
         # ---------------- terrain contact, (ng, N) layout ----------------
         with spans.span("sim.contact"):
-            Rg, r_w, pg = geom_frames(R, p)
-            vg = torch.stack(v)[gb]                           # (ng, N, 6)
+            # the bodies' stacks, which ABA reads too
+            R_stack, v_stack = torch.stack(R), torch.stack(v)
+            Rg, r_w, pg = geom_frames(R_stack, p)
+            vg = v_stack[gb]                                  # (ng, N, 6)
             w_w = (Rg @ vg[..., :3, None]).squeeze(-1)
             u_w = (Rg @ vg[..., 3:, None]).squeeze(-1)
             gp = (pg + r_w).permute(2, 0, 1).contiguous()      # (3, ng, N)
@@ -425,73 +359,13 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
 
             # per-body world wrench [torque; force] at body origins
             torque_g = _cross0(r_w.permute(2, 0, 1), gF)
-            bF = torch.matmul(E, gF).permute(2, 1, 0)          # (N, nb, 3)
-            bN = torch.matmul(E, torque_g).permute(2, 1, 0)
+            bF = torch.matmul(E, gF)                           # (3, nb, N)
+            bN = torch.matmul(E, torque_g)
 
         # ---------------- joint-space extra torques, ABA ----------------
         with spans.span("sim.aba"):
-            qj, qdj = q[:, 7:], qd[:, 6:]
-            below = torch.clamp(qj - dof_lo, max=0.0)
-            above = torch.clamp(qj - dof_hi, min=0.0)
-            t = -params.limit_kp * (below + above) * i_eff
-            stop = i_eff * torch.abs(qdj) / dt
-            mag = damping * torch.abs(qdj) + friction_j
-            mag = mag + torch.where((below < 0) | (above > 0),
-                                    params.limit_kd * torch.abs(qdj), 0.0)
-            tau_eff = tau + (t - torch.sign(qdj) * torch.minimum(mag, stop))
-
-            # ---------------- ABA ----------------
-            Rs = torch.stack(R, 1)                         # (N, nb, 3, 3)
-            Rst = Rs.transpose(-1, -2)
-            vs = torch.stack(v, 1)                             # (N, nb, 6)
-            fg_lin = _mv(Rst, gvec) * mass[..., None]
-            f_bias = torch.cat(
-                [torch.linalg.cross(com, fg_lin) + _mv(Rst, bN),
-                 fg_lin + _mv(Rst, bF)], -1)
-            pA = list((spatial.cross_force(vs, _mv(IA_body, vs))
-                       - f_bias).unbind(1))
-            qd_b = torch.cat([torch.zeros_like(qd[:, :1]), qdj], -1)  # (N, nb)
-            c_vp = spatial.cross_motion(vs, S * qd_b[..., None]).unbind(1)
-            IA = list(IA_body.unbind(1))
-
-            U, d_inv, u_ = [None] * nb, [None] * nb, [None] * nb
-            for i in range(nb - 1, 0, -1):
-                pa = parent[i]
-                Ui = IA[i] @ S[i]
-                d_inv[i] = 1.0 / (Ui @ S[i] + armature[i - 1])
-                u_[i] = tau_eff[:, i - 1] - pA[i] @ S[i]
-                U[i] = Ui
-                Ia = (IA[i] + Ui[:, :, None] * Ui[:, None, :]
-                      * (-d_inv[i])[:, None, None])
-                pai = (pA[i] + _mv(Ia, c_vp[i])
-                       + Ui * (u_[i] * d_inv[i])[:, None])
-                Rj, pj = jR[i], jp[i]
-                Rfu = _mv(Rj, pai[:, 3:])
-                fp_ang = _mv(Rj, pai[:, :3]) + torch.linalg.cross(
-                    pj.expand_as(Rfu), Rfu)
-                pA[pa] = pA[pa] + torch.cat([fp_ang, Rfu], -1)
-                IA[pa] = IA[pa] + _transform_abi(Ia, Rj, pj)
-
-            a0 = _spd_solve6(IA[0], -pA[0])
-            a = [a0]
-            qdd = []
-            for i in range(1, nb):
-                Rj, pj = jR[i], jp[i]
-                ap = a[parent[i]]
-                aw = _mtv(Rj, ap[:, :3])
-                au = _mtv(Rj, ap[:, 3:] + torch.linalg.cross(ap[:, :3],
-                                                             pj.expand_as(aw)))
-                a_in = torch.cat([aw, au], -1) + c_vp[i]
-                qdd_i = (u_[i] - (U[i] * a_in).sum(-1)) * d_inv[i]
-                qdd.append(qdd_i)
-                a.append(a_in + S[i] * qdd_i[:, None])
-            qdd = torch.stack(qdd, -1)
-
-            # base acceleration to world coordinates
-            R0 = R[0]
-            ang_acc_w = _mv(R0, a0[:, :3])
-            lin_acc_w = _mv(R0, a0[:, 3:] + torch.linalg.cross(
-                v[0][:, :3], v[0][:, 3:]))
+            qdd, ang_acc_w, lin_acc_w = aba(tc, q, qd, tau, R_stack, v_stack,
+                                            IA_body, mass, com, bF, bN)
 
         # ---------------- integrate (semi-implicit) ----------------
         with spans.span("sim.integrate"):
@@ -500,6 +374,7 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
             # inf->NaN cascade
             lin = torch.clamp(qd[:, 0:3] + lin_acc_w * dt, -mv, mv)
             ang = torch.clamp(qd[:, 3:6] + ang_acc_w * dt, -mv, mv)
+            qj, qdj = q[:, 7:], qd[:, 6:]
             joints_v = torch.clamp(qdj + dt * qdd, -params.max_joint_vel,
                                    params.max_joint_vel)
             q_new = torch.cat([q[:, 0:3] + lin * dt,
@@ -516,7 +391,7 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
                 wb = bqd[:, 3:]
                 gyro = torch.linalg.cross(wb, _mv(I_w, wb))
                 wd = _solve3(I_w, box_N.T - gyro)
-                lin_acc = gvec + box_F.T * (1.0 / m_box)[:, None]
+                lin_acc = tc.gvec + box_F.T * (1.0 / m_box)[:, None]
                 b_lin = torch.clamp(bqd[:, :3] + lin_acc * dt, -mv, mv)
                 b_ang = torch.clamp(wb + wd * dt, -mv, mv)
                 bx_new = (torch.cat([bq[:, :3] + b_lin * dt,

@@ -1,7 +1,9 @@
 """Device measurement helpers shared by the benchmark harness
 (dwbc_tpu_torch/bench.py) and chip_smoke.py: the card's published peaks
 and its nvidia-smi identity, the contact law's bytes, operations and
-bound, random contact-law inputs, and CUDA-graph timing of a call; and
+bound, random contact-law inputs, the ABA op's random inputs and bytes
+(shared with tests/test_torch_aba_kernel.py), and CUDA-graph timing of a
+call; and
 the comparison of a learning curve with the JAX package's committed runs
 (`compare_curves`, `CURVES`), which reads only their metrics.jsonl.
 
@@ -103,6 +105,89 @@ def random_scene(n, ng, nb, seed, device, sorted=True):
     return (t(gp), t(rng.normal(size=(3, ng, n))), cache,
             t(np.abs(rng.normal(size=(3, ng, n))) * 5.0),
             t(np.linspace(0.4, 2.5, n)), gc, ContactParams(dt=0.005), 0.005)
+
+
+# every tree a task builds its substep from: widowGo1 (21 bodies, two
+# prismatic sibling fingers under body 18) and the legged robots (13)
+ABA_TREES = ("widowGo1", "go1", "a1", "anymal_b", "anymal_c", "cassie")
+
+
+def aba_model(name):
+    """(RobotModel, i_eff) of an ABA_TREES tree as its task loads it, with
+    the joints' effective inertias at the reference pose."""
+    from ..core import urdf
+    from ..envs import legged_config
+    from ..sim import dynamics
+
+    if name == "widowGo1":
+        m = urdf.load_urdf(urdf.WIDOW_GO1_URDF,
+                           dof_order=urdf.WIDOW_GO1_DOF_ORDER, armature=0.01)
+    else:
+        cfg = getattr(legged_config, f"{name}_rough")().asset
+        m = urdf.load_urdf(cfg.file, dof_order=cfg.dof_order,
+                           armature=cfg.armature)
+    q_ref = np.zeros(m.nq, np.float32)
+    q_ref[6] = 1.0
+    M = dynamics.crba(m, dynamics.default_inertial(m, "cpu"),
+                      torch.as_tensor(q_ref))
+    return m, torch.diagonal(M)[6:]
+
+
+def random_aba_state(m, n, seed, past_limits=True):
+    """Random inputs of the ABA op for model m at n envs, as numpy: q, qd,
+    tau, mass, com, inertia, bF, bN ((3, nb, n) each). Base poses and
+    velocities, joints up to 0.3 rad past their limits (or 5% inside
+    them), every 7th env's joints at rest and every 7th from the 3rd
+    20x faster, per-env masses and inertias scaled by 0.8-1.2, nonzero
+    contact wrenches on every body."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    lo = np.maximum(m.dof_lower, -3.0)
+    hi = np.minimum(m.dof_upper, 3.0)
+    pad = 0.3 if past_limits else -0.05 * (hi - lo)
+    q = np.zeros((n, m.nq), f32)
+    q[:, :3] = rng.normal(0.0, 1.0, (n, 3))
+    quat = rng.normal(size=(n, 4))
+    q[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    q[:, 7:] = rng.uniform(lo - pad, hi + pad, (n, m.nj))
+    qd = rng.normal(0.0, 1.0, (n, m.nv)).astype(f32)
+    qd[::7, 6:] = 0.0                         # joints at rest
+    qd[3::7, 6:] *= 20.0                      # and fast
+    scale = rng.uniform(0.8, 1.2, (n, m.nb)).astype(f32)
+    return dict(
+        q=q, qd=qd, tau=rng.normal(0.0, 10.0, (n, m.nj)).astype(f32),
+        mass=np.asarray(m.mass, f32) * scale,
+        com=np.tile(np.asarray(m.com, f32), (n, 1, 1)),
+        inertia=np.asarray(m.inertia, f32) * scale[..., None, None],
+        bF=rng.normal(0.0, 20.0, (3, m.nb, n)).astype(f32),
+        bN=rng.normal(0.0, 2.0, (3, m.nb, n)).astype(f32))
+
+
+def aba_args(m, s, device):
+    """The ABA op's arguments after its TreeConst for state s of
+    random_aba_state on `device`, the stacks from sim/dynamics' FK:
+    (args, kinematics, the state's tensors)."""
+    from ..core import spatial
+    from ..sim import dynamics
+
+    t = {k: torch.as_tensor(v, device=device) for k, v in s.items()}
+    kin = dynamics.fk(m, t["q"], t["qd"])
+    IA_body = spatial.spatial_inertia(t["mass"], t["com"], t["inertia"])
+    return (t["q"], t["qd"], t["tau"], kin.rot.transpose(0, 1).contiguous(),
+            kin.vel.transpose(0, 1).contiguous(), IA_body, t["mass"],
+            t["com"], t["bF"], t["bN"]), kin, t
+
+
+def aba_bytes(args, table) -> int:
+    """Bytes the ABA kernel must move for the op's arguments `args` (after
+    its TreeConst): every input, of the symmetric (N, nb, 6, 6) spatial
+    inertias only the upper triangles, the tree table, and the (N, nb - 1)
+    joint and (N, 6) base accelerations it writes."""
+    q, IA_body = args[0], args[5]
+    n, nb = IA_body.shape[:2]
+    floats = (sum(t.numel() for i, t in enumerate(args) if i != 5)
+              + 21 * nb * n + table.numel() + n * (nb - 1 + 6))
+    return 4 * floats
 
 
 def device_ms(fn, sets, launches):

@@ -28,8 +28,9 @@ env.post (an env step's physics substeps and everything after them);
 sim.fk, sim.contact, sim.aba, sim.integrate (one physics substep,
 sim/fused.py); ppo.gae, ppo.minibatch, ppo.dagger_minibatch (rl/ppo.py);
 setup.env, setup.runner (utils/task_registry.make_runner) and
-setup.native (loading or building a native library). Counter:
-host_sync, each point where the host waits for the card.
+setup.native (loading or building a native library). Counters:
+host_sync, each point where the host waits for the card; aba_kernel,
+each launch of the articulated-body kernel (ops/aba_kernel.py).
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ from typing import Deque, List, Optional
 import torch
 from torch.autograd import profiler as _profiler
 
-RING = 64
+# records kept: more than a 51 s benchmark window holds (go1 at 4096 envs
+# ran ~90 iterations in one on an H100 once ABA became one kernel launch)
+RING = 1024
 
 
 def _empty_setup() -> dict:

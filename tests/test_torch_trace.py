@@ -121,7 +121,7 @@ def test_the_ring_keeps_the_newest_records():
         spans.count("host_sync", it)
         spans.end_iteration()
     recs = spans.records()
-    assert len(recs) == spans.RING == 64
+    assert len(recs) == spans.RING == 1024
     assert [r["it"] for r in recs] == list(range(6, spans.RING + 6))
     assert recs[-1]["counters"] == {"host_sync": spans.RING + 5}
     # outside an iteration a span is timed and kept nowhere
