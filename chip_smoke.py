@@ -94,9 +94,10 @@ Phases, each of which raises on failure (exit code != 0):
      collect and zero on the rows of the envs that just reset;
  12. recurrent: make_runner("go1_flat_lstm", 4096 envs), two iterations
      through RecurrentRunner.learn and a third by hand (collect and
-     update timed apart; 288 launches); and one recurrent `update` on the
-     card against the CPU (T = 8, N = 16), parameters within rtol 1e-4 /
-     atol 1e-5;
+     update timed apart; 288 launches); and one recurrent `update` of the
+     task's registered policy (LSTM 512, heads 512-256-128) on the card
+     against the CPU (T = 8, N = 16), parameters within rtol 1e-4 / atol
+     1e-5;
  13. the other robots: cassie, a1 and anymal_b, one iteration each at
      4096 envs (96 launches each), so that every timed kernel shape is
      also launched from an env;
@@ -1155,8 +1156,9 @@ def recurrent_phase(device):
 
 
 def recurrent_update_check(device):
-    """One recurrent update on the card against the CPU from the same
-    weights, trajectory (T = 8, N = 16), initial carry and permutation."""
+    """One recurrent update of go1_flat_lstm's policy (its registered
+    widths) on the card against the CPU from the same weights, trajectory
+    (T = 8, N = 16), initial carry and permutation."""
     from dwbc_tpu_torch.models.actor_critic_recurrent import (
         ActorCriticRecurrent)
     from dwbc_tpu_torch.rl import ppo
@@ -1164,15 +1166,14 @@ def recurrent_update_check(device):
     from dwbc_tpu_torch.utils.task_registry import TASKS
 
     T, N = 8, 16
-    cfg = TASKS["go1_flat_lstm"].ppo_cfg
+    spec = TASKS["go1_flat_lstm"]
+    cfg, policy = spec.ppo_cfg, spec.recurrent_policy
     torch.manual_seed(4)
     cpu_model = ActorCriticRecurrent(num_obs=48, num_actions=12,
-                                     rnn_hidden_size=64,
-                                     actor_hidden_dims=(64,),
-                                     critic_hidden_dims=(64,))
+                                     **dataclasses.asdict(policy))
     rng = np.random.default_rng(4)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
-    h = lambda: f32(0.5 * rng.normal(size=(N, 64)))
+    h = lambda: f32(0.5 * rng.normal(size=(N, policy.rnn_hidden_size)))
     h0 = ((h(), h()), (h(), h()))
     obs = f32(rng.normal(size=(T, N, 48)))
     dones = torch.as_tensor(rng.random((T, N)) < 0.15)
@@ -1213,8 +1214,10 @@ def recurrent_update_check(device):
         torch.testing.assert_close(results["card"][k], want, rtol=1e-4,
                                    atol=1e-5, msg=lambda m: f"{k}: {m}")
         err = max(err, float((results["card"][k] - want).abs().max()))
-    log(f"recurrent update check: card vs CPU, T={T} N={N}, parameters "
-        f"max_abs_err={err:.3g}, learning rate {rates['card']:.3g}")
+    log(f"recurrent update check: card vs CPU, T={T} N={N}, LSTM "
+        f"{policy.rnn_hidden_size}, heads {policy.actor_hidden_dims}, "
+        f"parameters max_abs_err={err:.3g}, learning rate "
+        f"{rates['card']:.3g}")
     return err
 
 
@@ -1284,7 +1287,8 @@ def deploy_phase(device, task, ckpt):
 
 def update_invariant(device, envs):
     """One-epoch one-minibatch updates of the go1 MLP and of the
-    go1_flat_lstm recurrent policy on rows `envs` of one trajectory (T =
+    go1_flat_lstm recurrent policy (its registered widths) on rows `envs`
+    of one trajectory (T =
     24, 64 envs, made from a seed, so every process makes the same): the
     flattened parameters after each. Inside a process group the updates
     average over the ranks."""
@@ -1298,6 +1302,7 @@ def update_invariant(device, envs):
     T, N = LEGGED_STEPS, 64
     cfg = dataclasses.replace(TASKS["go1"].ppo_cfg, num_learning_epochs=1,
                               num_mini_batches=1)
+    policy = TASKS["go1_flat_lstm"].recurrent_policy
     rng = np.random.default_rng(11)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
     out = []
@@ -1305,15 +1310,14 @@ def update_invariant(device, envs):
         torch.manual_seed(12)
         if recurrent:
             model = ActorCriticRecurrent(num_obs=48, num_actions=12,
-                                         rnn_hidden_size=64,
-                                         actor_hidden_dims=(64,),
-                                         critic_hidden_dims=(64,))
+                                         **dataclasses.asdict(policy))
             num_obs = 48
         else:
             model, num_obs = MlpActorCritic(num_obs=235, num_actions=12), 235
         obs = f32(rng.normal(size=(T, N, num_obs)))
-        h0 = tuple(tuple(f32(0.5 * rng.normal(size=(N, 64)))
-                         for _ in range(2)) for _ in range(2))
+        h0 = tuple(tuple(f32(0.5 * rng.normal(
+            size=(N, policy.rnn_hidden_size))) for _ in range(2))
+            for _ in range(2))
         dones = torch.as_tensor(rng.random((T, N)) < 0.1)
         dones_prev = torch.cat([torch.zeros((1, N), dtype=torch.bool),
                                 dones[:-1]])
@@ -1788,11 +1792,23 @@ def learning_curve(iterations, task="go1_flat", train_args=()):
     of T and `--ts_weight`; an unknown one raises before training) beside
     the JAX runs' values and its band, and writes
     chiprun_out/learning_curve_<key>[_seed<k>].json. Exits 1 if a value is
-    out of its band (after writing everything)."""
+    out of its band (after writing everything). Refuses, before training,
+    a recurrent task whose registered widths are not the JAX package's
+    64-wide policy, which is all its runs trained: go1_flat_lstm trains
+    legged_gym's published widths, of which the repository holds no
+    curve."""
+    from dwbc_tpu_torch.models.actor_critic_recurrent import (
+        RecurrentPolicyCfg)
     from dwbc_tpu_torch.runner import train
     from dwbc_tpu_torch.utils import task_registry
     from dwbc_tpu_torch.utils.measure import (CURVES, compare_curves,
                                               curve_key, read_curve)
+
+    policy = task_registry.TASKS[task].recurrent_policy
+    if policy not in (None, RecurrentPolicyCfg()):
+        sys.exit(f"chip_smoke: no learning curve of {task} at its widths "
+                 f"({policy}); the JAX runs in measure.CURVES trained "
+                 f"{RecurrentPolicyCfg()}")
 
     def flag(name, default=None):
         return (train_args[train_args.index(name) + 1]

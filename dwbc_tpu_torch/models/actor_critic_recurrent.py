@@ -21,7 +21,8 @@ orthogonal recurrent kernel per gate, zero biases.
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -80,6 +81,24 @@ def _map_carry(fn, carry):
     if torch.is_tensor(carry):
         return fn(carry)
     return tuple(_map_carry(fn, c) for c in carry)
+
+
+@dataclasses.dataclass(frozen=True)
+class RecurrentPolicyCfg:
+    """The recurrent policy's widths, named as ActorCriticRecurrent's
+    arguments (the reference's LeggedRobotCfgPPO.policy and its block for
+    'ActorCriticRecurrent', legged_robot_config.py). The defaults are the
+    JAX package's RecurrentRunner's: an LSTM of 64 and one layer of 64 in
+    each head. Only the widths differ between the two in use; rnn_type,
+    activation and init_noise_std mirror the reference's block and hold
+    one value in both."""
+
+    rnn_type: str = "lstm"
+    rnn_hidden_size: int = 64
+    actor_hidden_dims: Tuple[int, ...] = (64,)
+    critic_hidden_dims: Tuple[int, ...] = (64,)
+    activation: str = "elu"
+    init_noise_std: float = 1.0
 
 
 class ActorCriticRecurrent(nn.Module):

@@ -20,6 +20,7 @@ minibatch; GAE normalises with the job's advantage mean and std.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -27,7 +28,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..models.actor_critic_recurrent import ActorCriticRecurrent, _map_carry
+from ..models.actor_critic_recurrent import (ActorCriticRecurrent,
+                                             RecurrentPolicyCfg, _map_carry)
 from ..parallel import distributed as dist
 from ..parallel import mesh
 from ..utils import device as device_lib
@@ -179,16 +181,19 @@ class RecurrentPPO:
             for idx in idx_mat:
                 with spans.span("ppo.minibatch"):
                     state.opt.zero_grad(set_to_none=False)
-                    loss, aux = loss_fn(idx)
-                    loss.backward()
-                    if dist.active():
-                        aux = ppo_lib._mean_over_ranks(state.params, aux)
-                    if adaptive_lr:
-                        device_lib.host_sync(aux["kl_mean"])
-                        lr = ppo_lib.adapt_learning_rate(
-                            cfg, lr, aux["kl_mean"].item())
-                    ppo_lib._adam_step(state.opt, state.params,
-                                       cfg.max_grad_norm, lr)
+                    with spans.span("ppo.unroll"):
+                        loss, aux = loss_fn(idx)
+                    with spans.span("ppo.backward"):
+                        loss.backward()
+                    with spans.span("ppo.step"):
+                        if dist.active():
+                            aux = ppo_lib._mean_over_ranks(state.params, aux)
+                        if adaptive_lr:
+                            device_lib.host_sync(aux["kl_mean"])
+                            lr = ppo_lib.adapt_learning_rate(
+                                cfg, lr, aux["kl_mean"].item())
+                        ppo_lib._adam_step(state.opt, state.params,
+                                           cfg.max_grad_norm, lr)
                     for k in keys:
                         totals[k] = totals[k] + aux[k]
         n = cfg.num_learning_epochs * nmb
@@ -204,10 +209,13 @@ class RecurrentRunner:
     (the reference's selection mechanism, on_policy_runner.py:63). Runs on
     the env's device. Inside a process group `env` is this rank's share of
     the job's envs; with several ranks it must divide into
-    num_mini_batches minibatches of envs."""
+    num_mini_batches minibatches of envs. `policy` gives the widths of
+    the ActorCriticRecurrent it trains (the task registry hands over the
+    task's; the default is the JAX package's 64-wide policy)."""
 
     def __init__(self, env, cfg: ppo_lib.PPOConfig, num_steps_per_env=24,
-                 seed: int = 1, rnn_hidden_size: int = 64, log_dir=None):
+                 seed: int = 1, log_dir=None,
+                 policy: RecurrentPolicyCfg = RecurrentPolicyCfg()):
         if dist.world_size() > 1 and env.num_envs % cfg.num_mini_batches:
             raise ValueError(
                 f"this rank's {env.num_envs} envs must divide into "
@@ -226,8 +234,7 @@ class RecurrentRunner:
             torch.manual_seed(seed)
             self.model = ActorCriticRecurrent(
                 num_obs=env.num_obs, num_actions=env.num_actions,
-                rnn_hidden_size=rnn_hidden_size,
-                actor_hidden_dims=(64,), critic_hidden_dims=(64,)).to(dev)
+                **dataclasses.asdict(policy)).to(dev)
         # the same weights on every rank (nothing to do outside a group)
         mesh.replicate(mesh.state_tensors(self.model))
         self.ppo_state = ppo_lib.PPOState(cfg, self.model)
@@ -242,6 +249,7 @@ class RecurrentRunner:
                                       device=dev)
         self.last_collection_time = 0.0
         self.last_learn_time = 0.0
+        self.last_traj = None   # the newest trajectory, for inspection
 
     def _sync(self):
         if device_lib.on_card(self.device):
@@ -258,6 +266,7 @@ class RecurrentRunner:
                 self.save(os.path.join(self.log_dir, f"model_{it}"))
             spans.begin_iteration(it)
             h0 = self.carry
+            self.last_traj = None   # free it before the next one is built
             with spans.span("runner.collect") as collect:
                 (self.env_state, self.obs, self.carry, self.last_dones, traj,
                  last_values, ep_stats, nres) = self.alg.collect(
@@ -270,6 +279,7 @@ class RecurrentRunner:
                 self._sync()
             self.last_collection_time = collect.seconds
             self.last_learn_time = learn.seconds
+            self.last_traj = traj
             # the job's mean step reward (every rank holds as many envs)
             step_rew = traj.rewards.mean().reshape(1)
             dist.all_reduce_mean([step_rew])   # nothing outside a group

@@ -27,6 +27,9 @@ rollout.policy (the policy's calls of a collect step); env.physics and
 env.post (an env step's physics substeps and everything after them);
 sim.fk, sim.contact, sim.aba, sim.integrate (one physics substep,
 sim/fused.py); ppo.gae, ppo.minibatch, ppo.dagger_minibatch (rl/ppo.py);
+inside the recurrent update's ppo.minibatch ppo.unroll (the re-unroll and
+the loss), ppo.backward and ppo.step (the KL read, the rate and the Adam
+step; rl/recurrent.py);
 setup.env, setup.runner (utils/task_registry.make_runner) and
 setup.native (loading or building a native library). Counters:
 host_sync, each point where the host waits for the card; aba_kernel,

@@ -8,9 +8,10 @@ plus the generic locomotion family and its recurrent variant.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 from ..envs import legged_config as lc
+from ..models.actor_critic_recurrent import RecurrentPolicyCfg
 from ..rl import ppo as ppo_lib
 from . import spans
 
@@ -24,6 +25,8 @@ class TaskSpec(NamedTuple):
     # the reference selects the recurrent variant by name through config
     # (policy_class_name, on_policy_runner.py:63)
     policy_class_name: str = "ActorCritic"
+    # the recurrent policy's widths (ActorCriticRecurrent tasks only)
+    recurrent_policy: Optional[RecurrentPolicyCfg] = None
 
 
 def _widow_env(num_envs, seed, device, terrain=None, adaptive=False):
@@ -72,6 +75,15 @@ _BASE_PPO = ppo_lib.PPOConfig(
     min_policy_std=(0.0,) * 12, mixing_schedule=(0.0, 0.0, 1.0),
     priv_reg_coef_schedule=(0.0, 0.0, 0.0, 1.0))
 
+# LeggedRobotCfgPPO.policy (legged_robot_config.py): MLP 512-256-128,
+# elu, init_noise_std 1.0, and the block "only for
+# 'ActorCriticRecurrent'": rnn_type 'lstm', rnn_hidden_size 512,
+# rnn_num_layers 1
+_LEGGED_GYM_LSTM = RecurrentPolicyCfg(
+    rnn_type="lstm", rnn_hidden_size=512,
+    actor_hidden_dims=(512, 256, 128), critic_hidden_dims=(512, 256, 128),
+    activation="elu", init_noise_std=1.0)
+
 _ADAPTIVE_PPO = dataclasses.replace(
     _WIDOW_PPO, torque_supervision=True, adaptive_arm_gains=True,
     min_policy_std=tuple([0.15, 0.25, 0.25] * 4 + [0.2] * 3 + [0.05] * 3
@@ -102,7 +114,8 @@ TASKS: Dict[str, TaskSpec] = {
                        "rough_cassie"),
     "go1_flat_lstm": TaskSpec(
         _legged_env(lc.go1_flat), _BASE_PPO, 24, 4096, "flat_go1_lstm",
-        policy_class_name="ActorCriticRecurrent"),
+        policy_class_name="ActorCriticRecurrent",
+        recurrent_policy=_LEGGED_GYM_LSTM),
 }
 
 
@@ -136,7 +149,7 @@ def make_runner(task: str, num_envs=None, seed: int = 1, log_dir=None,
             from ..rl.recurrent import RecurrentRunner
             runner = RecurrentRunner(
                 env, spec.ppo_cfg, num_steps_per_env=spec.num_steps_per_env,
-                seed=seed, log_dir=log_dir)
+                seed=seed, log_dir=log_dir, policy=spec.recurrent_policy)
         else:
             from ..rl.runner import OnPolicyRunner
             runner = OnPolicyRunner(

@@ -171,12 +171,30 @@ def test_make_runner_selects_the_recurrent_runner():
                                     device="cpu")
     assert isinstance(runner, RecurrentRunner)
     assert spec.policy_class_name == "ActorCriticRecurrent"
+    # legged_gym's published recurrent policy (LeggedRobotCfgPPO.policy):
+    # LSTM 512, MLP 512-256-128 in both heads, elu, std 1.0
     assert runner.model.rnn_type == "lstm"
-    assert runner.model.rnn_hidden_size == 64
-    assert [l.out_features for l in runner.model.actor_layers] == [64, 12]
+    assert runner.model.rnn_hidden_size == 512
+    assert runner.model.memory_a.wh.in_features == 512
+    assert [l.out_features for l in runner.model.actor_layers] == [
+        512, 256, 128, 12]
+    assert [l.out_features for l in runner.model.critic_layers] == [
+        512, 256, 128, 1]
+    assert torch.equal(runner.model.std, torch.ones(12))
+    assert runner.model.act is torch.nn.functional.elu
     # the recurrent runner does not randomise the episode clocks
     assert not runner.env_state.episode_length.any()
     assert ppo.PPOConfig(**dataclasses.asdict(spec.ppo_cfg)).num_heads == 1
+
+
+def test_a_direct_recurrent_runner_keeps_the_jax_twins_widths():
+    """RecurrentRunner built without the registry's widths trains the JAX
+    package's RecurrentRunner policy: an LSTM of 64, one layer of 64."""
+    env, spec = make_env("go1_flat_lstm", num_envs=4, seed=1, device="cpu")
+    runner = RecurrentRunner(env, spec.ppo_cfg, seed=1)
+    assert runner.model.rnn_hidden_size == 64
+    assert [l.out_features for l in runner.model.actor_layers] == [64, 12]
+    assert [l.out_features for l in runner.model.critic_layers] == [64, 1]
 
 
 @pytest.mark.parametrize("flag,msg", [

@@ -228,3 +228,40 @@ def test_the_log_line_carries_the_spans_and_syncs(built, as_if_on_card,
     assert line["Perf/host_syncs"] == rec["counters"]["host_sync"] == 24
     for name, (_, ns) in rec["spans"].items():
         assert line["Perf/span/" + name] == ns * 1e-9
+
+
+RECURRENT_STEP = ("ppo.unroll", "ppo.backward", "ppo.step")
+
+
+@pytest.fixture(scope="module")
+def recurrent_runner():
+    """go1_flat_lstm (legged_gym's recurrent widths) at ENVS x STEPS."""
+    _, runner, _ = task_registry.make_runner("go1_flat_lstm", num_envs=ENVS,
+                                             seed=2, device="cpu")
+    runner.alg.num_steps = STEPS
+    return runner
+
+
+def test_the_recurrent_update_has_a_span_per_part_of_each_minibatch(
+        recurrent_runner, as_if_on_card):
+    runner = recurrent_runner
+    cfg = runner.alg.cfg
+    minibatches = cfg.num_learning_epochs * cfg.num_mini_batches
+    spans.reset()
+    runner.learn(1, log=None)
+    rec, = spans.records()
+    calls = {k: v[0] for k, v in rec["spans"].items()}
+    ns = {k: v[1] for k, v in rec["spans"].items()}
+    assert calls["ppo.minibatch"] == minibatches
+    for name in RECURRENT_STEP:
+        assert calls[name] == minibatches, name
+    assert sum(ns[k] for k in RECURRENT_STEP) <= ns["ppo.minibatch"]
+    assert ns["ppo.minibatch"] <= ns["runner.learn"]
+    assert calls["rollout.policy"] == STEPS
+    # the runner's two synchronisations, the adaptive KL's read in each
+    # minibatch's step, the log's read (every call of learn logs its
+    # first iteration)
+    assert rec["counters"]["host_sync"] == 2 + minibatches + 1
+    assert runner.last_learn_time == ns["runner.learn"] * 1e-9
+    # the newest trajectory is kept, as OnPolicyRunner keeps it
+    assert runner.last_traj.obs.shape == (STEPS, ENVS, 48)
