@@ -14,9 +14,9 @@
 
 Phases, each of which raises on failure (exit code != 0):
   1. the card's name and power limit (nvidia-smi);
-  2. build: compiles the contact and the ABA kernels from
+  2. build: compiles the contact, the ABA and the FK kernels from
      dwbc_tpu_torch/csrc with nvcc and logs ptxas's register and spill
-     report; the ABA kernel must not spill;
+     report; the ABA and the FK kernels must not spill;
   3. kernels: the CUDA contact kernel against its plain PyTorch version on
      the card (`active` exact, the forces within the parity tolerances) at
      KERNEL_SHAPES: widowGo1's 84 spheres on 21 bodies x 8192 envs (the
@@ -43,6 +43,14 @@ Phases, each of which raises on failure (exit code != 0):
      call. Per shape: its device time per launch (CUDA graph over N_SETS
      input sets), the plain version's device time and both host times per
      call, and the byte bound of those inputs at 3.35 TB/s;
+  3c. fk kernel: ops/fk_kernel.fk against sim/fk.fused_fk on the same card
+     tensors at ABA_SHAPES, with qd and without, random states as in 3b:
+     rotations, positions and velocities finite and within relative 1e-5,
+     one launch counted per call, and the count of entries that differ
+     from the eager version's at all (0 where the kernel's pinned rounding
+     order is cuBLAS's); per shape its device time per launch,
+     the plain version's, both host times and the byte bound
+     (measure.fk_bytes) at 3.35 TB/s;
   4. step check: one widowGo1 env step on the card (the kernel) against
      the same step on the CPU (the plain law), 64 envs, same state;
   5. slice: make_env("widowGo1", 8192 envs) on the full Perlin terrain, an
@@ -142,10 +150,13 @@ Phases, each of which raises on failure (exit code != 0):
      `_osc_target` call at 1024 envs with solve_spd's pivot-floored
      factorisation and with the raising Cholesky it replaced, in turns.
 Every env a phase builds must have its (spheres, bodies, envs) among
-KERNEL_SHAPES. Every phase that steps an env on the card zeroes both
+KERNEL_SHAPES. Every phase that steps an env on the card zeroes the three
 kernels' launch counts first and requires the contact and the ABA kernel
-to have launched once per physics substep each (launches_since_reset).
-The last two lines are the kernels' JSON record (contact_law and aba:
+to have launched once per physics substep each, and the FK kernel once
+per substep, once per env step for the terrain's tangent planes and, in
+widowGo1's family, once more per env step for the EE pose
+(launches_since_reset, fk_launches).
+The last two lines are the kernels' JSON record (contact_law, aba and fk:
 launches on the main path, device and plain ms, bound) and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Results are also written to chiprun_out/chip_smoke.json.
@@ -223,33 +234,62 @@ def host_us(fn, args, calls=20):
 
 
 def reset_launches():
-    """Zero both hand kernels' launch counts before a main-path phase."""
+    """Zero the hand kernels' launch counts before a main-path phase."""
     from dwbc_tpu_torch.ops.aba_kernel import aba
     from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    from dwbc_tpu_torch.ops.fk_kernel import fk
     contact_law.launches = 0
     aba.launches = 0
+    fk.launches = 0
 
 
-def launches_since_reset(what, expect=None):
-    """The launches of the contact and the ABA kernel since
-    reset_launches(): one each per physics substep, so the two counts must
-    agree, and equal `expect` where it is given. Returns the count."""
+def fk_launches(task, steps):
+    """FK kernel launches of `steps` env steps of `task`: one a physics
+    substep, one an env step for the terrain's tangent planes
+    (sim/fused.py sample_terrain) and, in widowGo1's family, one more an
+    env step for the EE pose in the post-step (envs/widowgo1.py
+    _ee_world)."""
+    return steps * (DECIMATION + 1 + int(task.startswith("widowGo1")))
+
+
+# FK launches held to their expected count on the main path, for the
+# kernels line
+FK_CHECKED = [0]
+
+
+def check_fk(what, got, want):
+    """Raise unless the FK kernel launched `want` times; count them."""
+    if got != want:
+        raise AssertionError(f"{what} launched the FK kernel {got} times, "
+                             f"expected {want}")
+    FK_CHECKED[0] += want
+
+
+def launches_since_reset(what, expect, fk_expect):
+    """The launches of the hand kernels since reset_launches(): the
+    contact and the ABA kernel one each per physics substep, so the two
+    counts must agree, and equal `expect` where it is not None; the FK
+    kernel `fk_expect` (fk_launches). Returns the contact count."""
     from dwbc_tpu_torch.ops.aba_kernel import aba
     from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    from dwbc_tpu_torch.ops.fk_kernel import fk
     got = (contact_law.launches, aba.launches)
     want = got[0] if expect is None else expect
     if got != (want, want):
         raise AssertionError(f"{what} launched the contact kernel {got[0]} "
                              f"and the ABA kernel {got[1]} times, expected "
                              f"{want} each")
+    check_fk(what, fk.launches, fk_expect)
     return want
 
 
 def build_phase():
-    """Phase 2: compile both hand kernels with nvcc (force) and log ptxas's
-    register and spill report; raises where the ABA kernel spills."""
-    from dwbc_tpu_torch.ops import aba_kernel, contact_kernel
-    for mod, spill_free in ((contact_kernel, False), (aba_kernel, True)):
+    """Phase 2: compile the hand kernels with nvcc (force) and log ptxas's
+    register and spill report; raises where the ABA or the FK kernel
+    spills."""
+    from dwbc_tpu_torch.ops import aba_kernel, contact_kernel, fk_kernel
+    for mod, spill_free in ((contact_kernel, False), (aba_kernel, True),
+                            (fk_kernel, True)):
         t0 = time.time()
         report = mod.build(force=True)
         log(f"build: {os.path.relpath(mod.SOURCE, ROOT)} -> "
@@ -346,6 +386,85 @@ def aba_phase(device, shapes=ABA_SHAPES):
             f"({nbytes / 1e6:.2f} MB, bytes); wrapper host "
             f"{wrapper_us:.1f} us/call, plain host {plain_us:.0f} us/call")
         rows.append(row)
+    return rows
+
+
+def fk_phase(device, shapes=ABA_SHAPES):
+    """Phase 3c: the FK kernel (ops/fk_kernel.fk) against its plain
+    version (sim/fk.fused_fk) on the same card tensors at ABA_SHAPES, with
+    qd and without, over N_SETS random states per shape (random_aba_state's
+    q and qd). Rotations, positions and velocities finite and within
+    ABA_RTOL (rel_err), one launch counted per call. Then, per shape: the
+    kernel's device time per launch (a CUDA graph rotating over the sets),
+    the plain version's device time and both host times per call, and the
+    byte bound (measure.fk_bytes) at the HBM rate."""
+    from dwbc_tpu_torch.ops.fk_kernel import fk
+    from dwbc_tpu_torch.sim.aba import tree_const
+    from dwbc_tpu_torch.sim.engine import SimParams
+    from dwbc_tpu_torch.sim.fk import fused_fk
+    from dwbc_tpu_torch.utils.measure import (
+        HBM_BYTES_PER_S, aba_model, fk_bytes, random_aba_state)
+
+    trees, rows = {}, []
+    for name, n in shapes:
+        if name not in trees:
+            m, i_eff = aba_model(name)
+            trees[name] = m, tree_const(m, SimParams(), i_eff, device)
+        m, tc = trees[name]
+        for with_qd in (True, False):
+            tag = f"{name} nb={m.nb} N={n} {'with' if with_qd else 'no'} qd"
+            sets = []
+            for i in range(N_SETS):
+                s = random_aba_state(m, n, seed=2000 * n + i)
+                q = torch.as_tensor(s["q"], device=device)
+                qd = torch.as_tensor(s["qd"], device=device)
+                sets.append((tc, q, qd) if with_qd else (tc, q))
+            err, differ = 0.0, 0
+            for i, args in enumerate(sets):
+                want = fused_fk(*args)
+                before = fk.launches
+                got = fk(*args)
+                torch.cuda.synchronize()
+                if fk.launches != before + 1:
+                    raise AssertionError(f"fk {tag}: {fk.launches - before} "
+                                         f"launches counted for one call")
+                for part, g, w in zip(("R", "p", "v"), got, want):
+                    if w is None:
+                        if g is not None:
+                            raise AssertionError(f"fk {tag}: v without qd")
+                        continue
+                    if g.shape != w.shape or not bool(
+                            torch.isfinite(g).all()):
+                        raise AssertionError(f"fk {tag} set {i}: {part} of "
+                                             f"shape {tuple(g.shape)}, or "
+                                             f"non-finite")
+                    e = rel_err(g, w)
+                    if not e < ABA_RTOL:
+                        raise AssertionError(
+                            f"fk {tag} set {i} {part}: relative error "
+                            f"{e:.3g} >= {ABA_RTOL}")
+                    err = max(err, e)
+                    differ += int((g != w).sum())
+            ms = device_ms(fk, sets, TIMED_LAUNCHES)
+            plain_ms = device_ms(fused_fk, sets, PLAIN_LAUNCHES)
+            wrapper_us = host_us(fk, sets[0])
+            plain_us = host_us(fused_fk, sets[0], calls=5)
+            nbytes = fk_bytes(m.nb, n, with_qd)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            row = dict(tree=name, nb=m.nb, n=n, with_qd=with_qd,
+                       max_rel_err=err, differing_entries=differ, ms=ms,
+                       plain_ms=plain_ms,
+                       host_us=wrapper_us, plain_host_us=plain_us,
+                       bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
+                       share_of_bound=bound_ms / ms)
+            log(f"kernel fk {tag}: max_rel_err={err:.3g} ({differ} entries "
+                f"differ from the eager version's) ms={ms:.5f} "
+                f"({row['share_of_bound']:.1%} of the bound) "
+                f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
+                f"({nbytes / 1e6:.2f} MB, bytes); wrapper host "
+                f"{wrapper_us:.1f} us/call, plain host {plain_us:.0f} "
+                f"us/call")
+            rows.append(row)
     return rows
 
 
@@ -481,7 +600,8 @@ def slice_phase(device, profile):
                                                         noise, hist)
         torch.cuda.synchronize()
         secs = time.time() - t0
-        launches = launches_since_reset("collect", NUM_STEPS * DECIMATION)
+        launches = launches_since_reset("collect", NUM_STEPS * DECIMATION,
+                                        fk_launches("widowGo1", NUM_STEPS))
         total_launches += launches
         if tuple(traj.obs.shape) != (NUM_STEPS, NUM_ENVS, env.num_obs):
             raise AssertionError(f"traj.obs shape {tuple(traj.obs.shape)}")
@@ -629,7 +749,8 @@ def train_phase(device, profile):
             learn_s=runner.last_learn_time,
             fps=NUM_STEPS * NUM_ENVS / (runner.last_collection_time
                                         + runner.last_learn_time)))
-    launches = launches_since_reset("training", 3 * NUM_STEPS * DECIMATION)
+    launches = launches_since_reset("training", 3 * NUM_STEPS * DECIMATION,
+                                    fk_launches("widowGo1", 3 * NUM_STEPS))
     if runner.ppo_state.counter != 3 or runner.it != 3:
         raise AssertionError(f"counter {runner.ppo_state.counter}, "
                              f"it {runner.it}")
@@ -790,7 +911,9 @@ def variant_train(device, n):
         "widowGo1_adaptive", num_envs=n, seed=1, log_dir=log_dir,
         device=device)
     runner.learn(2, log_every=1)
-    launches = launches_since_reset("the variant", 2 * NUM_STEPS * DECIMATION)
+    launches = launches_since_reset(
+        "the variant", 2 * NUM_STEPS * DECIMATION,
+        fk_launches("widowGo1_adaptive", 2 * NUM_STEPS))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tgt = runner.last_traj.target_arm_torques
     if tuple(tgt.shape) != (NUM_STEPS, n, 6):
@@ -911,8 +1034,9 @@ def legged_train(device, task, iterations):
             if not bool(torch.isfinite(t).all()):
                 raise AssertionError(f"{task} iteration {it}: non-finite "
                                      f"{name}")
-    launches = launches_since_reset(task,
-                                    iterations * LEGGED_STEPS * DECIMATION)
+    launches = launches_since_reset(
+        task, iterations * LEGGED_STEPS * DECIMATION,
+        fk_launches(task, iterations * LEGGED_STEPS))
     for k, v in model_snapshot(runner.model).items():
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{task}: non-finite {k}")
@@ -1120,8 +1244,9 @@ def recurrent_phase(device):
                                 runner.perm_gen)
     torch.cuda.synchronize()
     update_s = time.time() - t0
-    launches = launches_since_reset("go1_flat_lstm",
-                                    3 * LEGGED_STEPS * DECIMATION)
+    launches = launches_since_reset(
+        "go1_flat_lstm", 3 * LEGGED_STEPS * DECIMATION,
+        fk_launches("go1_flat_lstm", 3 * LEGGED_STEPS))
     if tuple(traj.obs.shape) != (LEGGED_STEPS, LEGGED_ENVS, 48):
         raise AssertionError(f"traj.obs shape {tuple(traj.obs.shape)}")
     for name, t in (("obs", traj.obs), ("rewards", traj.rewards),
@@ -1259,9 +1384,12 @@ def deploy_phase(device, task, ckpt):
     summary = play.play(task, checkpoint=ckpt, num_envs=PLAY_ENVS,
                         steps=PLAY_STEPS, use_jit=out_dir, out=npz,
                         device=device, plot=False)
-    launches = launches_since_reset(f"{task} play", PLAY_STEPS * DECIMATION)
-    data = np.load(npz)
     widow = task.startswith("widowGo1")
+    # play reads the EE pose once more a step in widowGo1's family
+    launches = launches_since_reset(
+        f"{task} play", PLAY_STEPS * DECIMATION,
+        fk_launches(task, PLAY_STEPS) + widow * PLAY_STEPS)
+    data = np.load(npz)
     want = {"q": (PLAY_STEPS, PLAY_ENVS, env.model.nq),
             "foot_forces": (PLAY_STEPS, PLAY_ENVS, 4, 3),
             "rew": (PLAY_STEPS, PLAY_ENVS), "dt": (),
@@ -1363,6 +1491,7 @@ def two_rank_worker(rank, store, out_dir, device, num_envs):
     of the update invariant. Writes rank<r>.npz into out_dir."""
     from dwbc_tpu_torch.ops.aba_kernel import aba
     from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    from dwbc_tpu_torch.ops.fk_kernel import fk
     from dwbc_tpu_torch.parallel import distributed as dist
     from dwbc_tpu_torch.utils import task_registry
 
@@ -1380,6 +1509,7 @@ def two_rank_worker(rank, store, out_dir, device, num_envs):
     runner.learn(2, log_every=1)
     runner.close()
     launches = (contact_law.launches, aba.launches)
+    fk_count = fk.launches
     params = torch.cat([p.detach().reshape(-1)
                         for p in runner.model.parameters()]).cpu().numpy()
     half = slice(rank * 32, rank * 32 + 32)
@@ -1387,7 +1517,7 @@ def two_rank_worker(rank, store, out_dir, device, num_envs):
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), params=params,
              lr=np.float64(runner.ppo_state.learning_rate),
              vx=runner.env_state.command_lin_vel_x.cpu().numpy(),
-             launches=launches, ff=ff, rnn=rnn)
+             launches=launches, fk_launches=fk_count, ff=ff, rnn=rnn)
     dist.shutdown()
 
 
@@ -1431,9 +1561,13 @@ def two_rank_phase(device, num_envs=LEGGED_ENVS):
     rows = read_metrics(run, 2)
     launches = [int(n) for r in ranks for n in r["launches"]]
     expect = 2 * LEGGED_STEPS * DECIMATION
-    if device.type == "cuda" and launches != [expect] * 4:
-        raise AssertionError(f"ranks launched the (contact, ABA) kernels "
-                             f"{launches} times")
+    if device.type == "cuda":
+        if launches != [expect] * 4:
+            raise AssertionError(f"ranks launched the (contact, ABA) "
+                                 f"kernels {launches} times")
+        for r, rank in enumerate(ranks):
+            check_fk(f"rank {r}", int(rank["fk_launches"]),
+                     fk_launches("go1", 2 * LEGGED_STEPS))
     single = update_invariant(device, slice(0, 64))
     err = 0.0
     for i, name in enumerate(("ff", "rnn")):
@@ -1463,13 +1597,15 @@ def nccl_worker(out_path, argv):
     counts set to 0 just before it; writes the counts."""
     from dwbc_tpu_torch.ops.aba_kernel import aba
     from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    from dwbc_tpu_torch.ops.fk_kernel import fk
     from dwbc_tpu_torch.runner import train
 
     reset_launches()
     train.main(argv)
     with open(out_path, "w") as f:
         json.dump(dict(launches=contact_law.launches,
-                       aba_launches=aba.launches), f)
+                       aba_launches=aba.launches, fk_launches=fk.launches),
+                  f)
 
 
 def nccl_phase(single_fps):
@@ -1505,6 +1641,8 @@ def nccl_phase(single_fps):
                              f"{launches} and the ABA kernel "
                              f"{counts['aba_launches']} times, expected "
                              f"{expect} each")
+    check_fk("the NCCL run", counts["fk_launches"],
+             fk_launches("go1", 2 * LEGGED_STEPS))
     fps = [r["Perf/total_fps"] for r in rows]
     log(f"NCCL, world size 1 (torchrun --standalone --nproc_per_node=1, "
         f"train CLI): go1 x {LEGGED_ENVS} Perf/total_fps {fps} vs "
@@ -1616,7 +1754,7 @@ def harness_phase(extra_args=()):
             "state_bytes_per_env_step", "collect_hbm_gbps",
             "hbm_util_vs_peak", "model_flops_per_iter", "mfu_vs_f32_peak",
             "contact_kernel"}
-    expect = 0
+    expect = fk_expect = 0
     for (task, n, steps), t in zip(HARNESS_TASKS, line["tasks"]):
         missing = keys - set(t)
         nulls = [k for k in keys if t.get(k) is None]
@@ -1640,8 +1778,9 @@ def harness_phase(extra_args=()):
         if shape not in {s[:3] for s in KERNEL_SHAPES}:
             raise AssertionError(f"harness {task}: no kernel check at "
                                  f"(ng, nb, N) = {shape}")
-        expect += ((HARNESS_WARMUP + HARNESS_ITERS * HARNESS_REPEATS)
-                   * steps * DECIMATION)
+        iters = HARNESS_WARMUP + HARNESS_ITERS * HARNESS_REPEATS
+        expect += iters * steps * DECIMATION
+        fk_expect += fk_launches(task, iters * steps)
         log(f"harness {task} x {n} envs x {steps} steps: total_fps median "
             f"{t['value']:.0f} over {t['runs']} (min {t['min']:.0f}, max "
             f"{t['max']:.0f}), collect {t['collection_time_s']:.3f} s, learn "
@@ -1653,7 +1792,7 @@ def harness_phase(extra_args=()):
             f"{k['ms']:.5f} ms ({k['share_of_bound']:.1%} of "
             f"{k['bound_ms']:.5f} ms), plain {k['plain_ms']:.4f} ms, "
             f"{k['launches_per_iter']:.0f} launches per iteration")
-    launches = launches_since_reset("the harness", expect)
+    launches = launches_since_reset("the harness", expect, fk_expect)
     log(f"harness: bench.main in process, {launches} launches, {wall:.1f} s; "
         f"device {line['device']}")
     return dict(line=line, wall_s=wall, launches=launches), launches
@@ -1736,7 +1875,8 @@ def repairs_phase(device, n=VARIANT_ENVS):
     actions = torch.zeros((n, env.num_actions), device=device)
     reset_launches()
     state2, out = env.step(state, actions, 3.0)
-    launches = launches_since_reset("the NaN env's step", DECIMATION)
+    launches = launches_since_reset("the NaN env's step", DECIMATION,
+                                    fk_launches("widowGo1_adaptive", 1))
     torch.cuda.synchronize()
     others = torch.arange(n, device=device) != poisoned
     if not bool(out.reset[poisoned]) or int(out.episode_stats["term_bad"]) < 1:
@@ -1864,7 +2004,9 @@ def learning_curve(iterations, task="go1_flat", train_args=()):
         task_registry.make_runner = make_runner
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = launches_since_reset(key)
+    from dwbc_tpu_torch.ops.contact_kernel import contact_law
+    launches = launches_since_reset(
+        key, None, fk_launches(task, contact_law.launches // DECIMATION))
     n_bad = int(torch.stack(blown).sum()) if blown else 0
     curve = read_curve(os.path.join(run_dir, "metrics.jsonl"))
     rows = [curve[it] for it in sorted(curve)]
@@ -1954,6 +2096,7 @@ def main():
     build_phase()
     rows = kernel_phase(device)
     aba_rows = aba_phase(device)
+    fk_rows = fk_phase(device)
     step_check(device)
     collects, launches = slice_phase(device, profile)
     training, n = train_phase(device, profile)
@@ -2034,10 +2177,24 @@ def main():
                                    "share_of_bound", "max_rel_err",
                                    "pivot_floor_rel_err")}
                 for r in aba_rows]))
+    # every main-path phase held the FK kernel's launches to fk_launches
+    fk_row = fk_rows[0]
+    kernels.append(dict(
+        name="fk", route="cuda", source="dwbc_tpu_torch/csrc/fk.cu",
+        replaces=None, launches=FK_CHECKED[0],
+        max_rel_err=max(r["max_rel_err"] for r in fk_rows),
+        ms=fk_row["ms"], plain_ms=fk_row["plain_ms"],
+        bound_ms=fk_row["bound_ms"], bound_by=fk_row["bound_by"],
+        library_ms=None, share_of_bound=fk_row["share_of_bound"],
+        shapes=[{k: r[k] for k in ("tree", "nb", "n", "with_qd", "ms",
+                                   "plain_ms", "host_us", "plain_host_us",
+                                   "bound_ms", "share_of_bound",
+                                   "max_rel_err", "differing_entries")}
+                for r in fk_rows]))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, kernel_rows=rows,
-                       aba_rows=aba_rows,
+                       aba_rows=aba_rows, fk_rows=fk_rows,
                        collects=collects, training=training,
                        update_check_max_abs_err=update_err,
                        bf16_update_check=dict(

@@ -9,10 +9,12 @@ the same math runs on batched tensors instead — (N, 3, 3) rotations,
 Python loop over the static kinematic tree's bodies, and the contact
 arrays keep the law's (ng, N) layout ((3, ng, N) for 3-vectors).
 
-The terrain contact law runs through ops/contact_kernel.contact_law and
-the articulated-body algorithm through ops/aba_kernel.aba: on the card
-each is one CUDA kernel launch per substep, on the CPU the plain version
-(sim/contact.py, sim/aba.py).
+Forward kinematics runs through ops/fk_kernel.fk, the terrain contact
+law through ops/contact_kernel.contact_law and the articulated-body
+algorithm through ops/aba_kernel.aba: on the card each is one CUDA kernel
+launch per call (FK once per substep and once per policy step for the
+terrain samples, the other two once per substep), on the CPU the plain
+version (sim/fk.py, sim/contact.py, sim/aba.py).
 """
 
 from __future__ import annotations
@@ -24,12 +26,13 @@ import torch
 
 from ..core import maths, spatial
 from ..core.model import RobotModel
+from ..ops import fk_kernel
 from ..ops.aba_kernel import aba
 from ..ops.contact_kernel import contact_law
 from ..terrain.terrain import Heightfield
 from ..utils import spans
 from ..utils.device import resolve_device
-from .aba import joint_frame, tree_const
+from .aba import tree_const
 from .contact import GeomConst, m_dir
 from .engine import PhysCtx, SimParams
 
@@ -60,10 +63,6 @@ def init_contact_carry(model: RobotModel, num_envs: int, with_box: bool = False,
 def _mv(R, v):
     """R @ v over the batch: R (..., 3, 3), v (..., 3) or a constant (3,)."""
     return torch.matmul(R, v.unsqueeze(-1)).squeeze(-1)
-
-
-def _mtv(R, v):
-    return _mv(R.transpose(-1, -2), v)
 
 
 def _cross0(a, b):
@@ -181,40 +180,25 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
         bhe_col = f32(bhe)[:, None, None]
 
     def fk(q, qd=None):
-        """Batched FK: per-body world (R, p) lists, and with qd the body
-        spatial velocities [ang; lin] in body coords."""
-        R = [maths.quat_to_mat(q[:, 3:7])]
-        p = [q[:, 0:3]]
-        v = None
-        if qd is not None:
-            v = [torch.cat([_mtv(R[0], qd[:, 3:6]), _mtv(R[0], qd[:, 0:3])],
-                           -1)]
-        for i in range(1, nb):
-            Rj, pj = joint_frame(tc, i, q[:, 6 + i])
-            pa = tc.parent[i]
-            R.append(R[pa] @ Rj)
-            p.append(_mv(R[pa], pj) + p[pa])
-            if qd is not None:
-                wp, up = v[pa][:, :3], v[pa][:, 3:]
-                w_i = _mtv(Rj, wp)
-                u_i = _mtv(Rj, up + torch.linalg.cross(wp, pj.expand_as(wp)))
-                v.append(torch.cat([w_i, u_i], -1)
-                         + tc.S[i] * qd[:, 5 + i, None])
-        return R, p, v
+        """Batched FK through the op: the bodies' stacked world rotations
+        (nb, N, 3, 3) and positions (nb, N, 3), and with qd their spatial
+        velocities (nb, N, 6) [ang; lin] in body coords, else None."""
+        return fk_kernel.fk(tc, q, qd)
 
-    def geom_frames(R_stack, p):
-        """Per-geom rotations (ng, N, 3, 3) and world offsets (ng, N, 3)
-        from the bodies' stacked rotations (nb, N, 3, 3)."""
-        Rg = R_stack[gb]
-        return Rg, (Rg @ geom_off).squeeze(-1), torch.stack(p)[gb]
+    def geom_frames(R, p):
+        """Per-geom rotations (ng, N, 3, 3), world offsets (ng, N, 3) and
+        body origins (ng, N, 3) from the bodies' stacked rotations
+        (nb, N, 3, 3) and positions (nb, N, 3)."""
+        Rg = R[gb]
+        return Rg, (Rg @ geom_off).squeeze(-1), p[gb]
 
     def sample_terrain(q):
         """Tangent-plane cache (h (ng, N), normal (3, ng, N), ax, ay),
         sampled once per policy step by the plan above."""
         R, p, _ = fk(q)
-        Rg, r_w, pg = geom_frames(torch.stack(R), p)
+        Rg, r_w, pg = geom_frames(R, p)
         foot_xy = (pg + r_w)[foot_idx][..., :2]               # (nf, N, 2)
-        body_xy = torch.stack(p)[sample_bodies_t][..., :2]    # (nsb, N, 2)
+        body_xy = p[sample_bodies_t][..., :2]                 # (nsb, N, 2)
         xy = torch.cat([body_xy, foot_xy], 0)
         xs, ys = xy[..., 0], xy[..., 1]
         h_s, n_s = hf.sample_with_normal(xs, ys)
@@ -335,13 +319,11 @@ def make_fused_substep(model: RobotModel, params: SimParams, hf: Heightfield,
                 box_cache):
         # ---------------- FK ----------------
         with spans.span("sim.fk"):
-            R, p, v = fk(q, qd)
+            R_stack, p_stack, v_stack = fk(q, qd)
 
         # ---------------- terrain contact, (ng, N) layout ----------------
         with spans.span("sim.contact"):
-            # the bodies' stacks, which ABA reads too
-            R_stack, v_stack = torch.stack(R), torch.stack(v)
-            Rg, r_w, pg = geom_frames(R_stack, p)
+            Rg, r_w, pg = geom_frames(R_stack, p_stack)
             vg = v_stack[gb]                                  # (ng, N, 6)
             w_w = (Rg @ vg[..., :3, None]).squeeze(-1)
             u_w = (Rg @ vg[..., 3:, None]).squeeze(-1)

@@ -2,8 +2,8 @@
 (dwbc_tpu_torch/bench.py) and chip_smoke.py: the card's published peaks
 and its nvidia-smi identity, the contact law's bytes, operations and
 bound, random contact-law inputs, the ABA op's random inputs and bytes
-(shared with tests/test_torch_aba_kernel.py), and CUDA-graph timing of a
-call; and
+(shared with tests/test_torch_aba_kernel.py), the FK kernel's bytes, and
+CUDA-graph timing of a call; and
 the comparison of a learning curve with the JAX package's committed runs
 (`compare_curves`, `CURVES`), which reads only their metrics.jsonl.
 
@@ -187,6 +187,19 @@ def aba_bytes(args, table) -> int:
     n, nb = IA_body.shape[:2]
     floats = (sum(t.numel() for i, t in enumerate(args) if i != 5)
               + 21 * nb * n + table.numel() + n * (nb - 1 + 6))
+    return 4 * floats
+
+
+def fk_bytes(nb: int, n: int, with_qd: bool) -> int:
+    """Bytes the FK kernel must move at nb bodies x n envs: q (n, nb + 6),
+    the tree table it copies (nb, TABLE_W), and the (nb, n) stacks it
+    writes, rotations and positions; with qd, also qd (n, nb + 5) and the
+    velocities."""
+    from ..sim.aba import TABLE_W
+
+    floats = n * (nb + 6) + nb * TABLE_W + nb * n * (9 + 3)
+    if with_qd:
+        floats += n * (nb + 5) + nb * n * 6
     return 4 * floats
 
 

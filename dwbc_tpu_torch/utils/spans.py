@@ -33,7 +33,9 @@ step; rl/recurrent.py);
 setup.env, setup.runner (utils/task_registry.make_runner) and
 setup.native (loading or building a native library). Counters:
 host_sync, each point where the host waits for the card; aba_kernel,
-each launch of the articulated-body kernel (ops/aba_kernel.py).
+each launch of the articulated-body kernel (ops/aba_kernel.py);
+fk_kernel, each launch of the forward-kinematics kernel
+(ops/fk_kernel.py).
 """
 
 from __future__ import annotations
