@@ -128,20 +128,14 @@ Phases, each of which raises on failure (exit code != 0):
  16. NCCL at world size 1: `python -m torch.distributed.run --standalone
      --nproc_per_node=1` of this script with --nccl-worker, which calls
      the train CLI's main() (`--task go1 --num_envs 4096
-     --max_iterations 2`) with the kernel's count set to 0 just before
-     it and writes the count back (192 launches); its Perf/total_fps
-     beside the single-process go1 fps of phase 9;
+     --max_iterations 2`) and writes the kernels' launches back (192
+     each of the contact and the ABA kernel); its Perf/total_fps beside
+     the single-process go1 fps of phase 9;
  17. cold path: 600 substeps of sim/engine.make_batched_step (the
      unfused step, plain torch) for widowGo1 standing under PD hold at
      1024 envs (finite, base height 0.24-0.35 m), and 2 substeps of 4 of
      those envs on the card against the CPU (atol 1e-4);
- 18. harness: the benchmark harness's main() (dwbc_tpu_torch/bench.py) in
-     process on widowGo1 x 8192 x 40, go1 x 4096 x 24 and go1_flat_lstm x
-     4096 x 24 with one warm-up iteration and two interleaved windows of
-     one iteration; every key of its JSON line present and set, the
-     median of its windows, 160 / 96 / 96 kernel launches per iteration,
-     each kernel shape among KERNEL_SHAPES, the card's nvidia-smi name;
- 19. repairs: solve_spd on SPD, zero-pivot and NaN matrices (NaN only in
+ 18. repairs: solve_spd on SPD, zero-pivot and NaN matrices (NaN only in
      the NaN matrix, the rest as on the CPU), aba with a massless env
      (non-finite in that env only, no raise), the heightfield at NaN, inf
      and 1e20 coordinates (no device-side assert), one widowGo1_adaptive
@@ -150,12 +144,12 @@ Phases, each of which raises on failure (exit code != 0):
      `_osc_target` call at 1024 envs with solve_spd's pivot-floored
      factorisation and with the raising Cholesky it replaced, in turns.
 Every env a phase builds must have its (spheres, bodies, envs) among
-KERNEL_SHAPES. Every phase that steps an env on the card zeroes the three
-kernels' launch counts first and requires the contact and the ABA kernel
-to have launched once per physics substep each, and the FK kernel once
-per substep, once per env step for the terrain's tangent planes and, in
-widowGo1's family, once more per env step for the EE pose
-(launches_since_reset, fk_launches).
+KERNEL_SHAPES. Every phase that steps an env on the card reads the three
+kernels' launch totals (utils/spans.total) first and requires the contact
+and the ABA kernel to have launched once per physics substep each, and
+the FK kernel once per substep, once per env step for the terrain's
+tangent planes and, in widowGo1's family, once more per env step for the
+EE pose (launches_since_reset, fk_launches).
 The last two lines are the kernels' JSON record (contact_law, aba and fk:
 launches on the main path, device and plain ms, bound) and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -233,14 +227,22 @@ def host_us(fn, args, calls=20):
     return (t1 - t0) / calls * 1e6
 
 
+# the hand kernels' launch counters (utils/spans), and their totals at the
+# last reset_launches()
+KERNEL_COUNTERS = ("contact_kernel", "aba_kernel", "fk_kernel")
+_AT_RESET = dict.fromkeys(KERNEL_COUNTERS, 0)
+
+
 def reset_launches():
-    """Zero the hand kernels' launch counts before a main-path phase."""
-    from dwbc_tpu_torch.ops.aba_kernel import aba
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
-    from dwbc_tpu_torch.ops.fk_kernel import fk
-    contact_law.launches = 0
-    aba.launches = 0
-    fk.launches = 0
+    """Take the hand kernels' launch totals before a main-path phase."""
+    from dwbc_tpu_torch.utils import spans
+    _AT_RESET.update((k, spans.total(k)) for k in KERNEL_COUNTERS)
+
+
+def launch_counts():
+    """(contact, ABA, FK) kernel launches since reset_launches()."""
+    from dwbc_tpu_torch.utils import spans
+    return tuple(spans.total(k) - _AT_RESET[k] for k in KERNEL_COUNTERS)
 
 
 def fk_launches(task, steps):
@@ -270,16 +272,13 @@ def launches_since_reset(what, expect, fk_expect):
     contact and the ABA kernel one each per physics substep, so the two
     counts must agree, and equal `expect` where it is not None; the FK
     kernel `fk_expect` (fk_launches). Returns the contact count."""
-    from dwbc_tpu_torch.ops.aba_kernel import aba
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
-    from dwbc_tpu_torch.ops.fk_kernel import fk
-    got = (contact_law.launches, aba.launches)
-    want = got[0] if expect is None else expect
-    if got != (want, want):
-        raise AssertionError(f"{what} launched the contact kernel {got[0]} "
-                             f"and the ABA kernel {got[1]} times, expected "
+    contact, aba, fk = launch_counts()
+    want = contact if expect is None else expect
+    if (contact, aba) != (want, want):
+        raise AssertionError(f"{what} launched the contact kernel {contact} "
+                             f"and the ABA kernel {aba} times, expected "
                              f"{want} each")
-    check_fk(what, fk.launches, fk_expect)
+    check_fk(what, fk, fk_expect)
     return want
 
 
@@ -292,15 +291,16 @@ def build_phase():
                             (fk_kernel, True)):
         t0 = time.time()
         report = mod.build(force=True)
-        log(f"build: {os.path.relpath(mod.SOURCE, ROOT)} -> "
-            f"{os.path.relpath(mod.LIBRARY, ROOT)} in "
+        source = mod.KERNEL.source
+        log(f"build: {os.path.relpath(source, ROOT)} -> "
+            f"{os.path.relpath(mod.KERNEL.library, ROOT)} in "
             f"{time.time() - t0:.2f} s")
         for line in report.splitlines():
             if any(w in line for w in ("properties", "registers", "spill")):
                 log(f"  ptxas: {line.strip()}")
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill", report)]
         if spill_free and (not spills or any(spills)):
-            raise AssertionError(f"{os.path.basename(mod.SOURCE)}: spill "
+            raise AssertionError(f"{os.path.basename(source)}: spill "
                                  f"bytes {spills} in ptxas's report")
 
 
@@ -322,8 +322,10 @@ def aba_phase(device, shapes=ABA_SHAPES):
     device time and both host times per call, and the byte bound of these
     inputs (measure.aba_bytes) at the HBM rate."""
     from dwbc_tpu_torch.ops.aba_kernel import aba
-    from dwbc_tpu_torch.sim.aba import fused_aba, tree_const
+    from dwbc_tpu_torch.sim.aba import fused_aba
     from dwbc_tpu_torch.sim.engine import SimParams
+    from dwbc_tpu_torch.sim.tree import tree_const
+    from dwbc_tpu_torch.utils import spans
     from dwbc_tpu_torch.utils.measure import (
         HBM_BYTES_PER_S, aba_args, aba_bytes, aba_model, random_aba_state)
 
@@ -346,12 +348,13 @@ def aba_phase(device, shapes=ABA_SHAPES):
         err = floor_err = 0.0
         for i, args in enumerate(sets):
             want = fused_aba(*args)
-            before = aba.launches
+            before = spans.total("aba_kernel")
             got = aba(*args)
             torch.cuda.synchronize()
-            if aba.launches != before + 1:
-                raise AssertionError(f"aba {tag}: {aba.launches - before} "
-                                     f"launches counted for one call")
+            counted = spans.total("aba_kernel") - before
+            if counted != 1:
+                raise AssertionError(f"aba {tag}: {counted} launches counted "
+                                     f"for one call")
             groups = ([("regular envs", regular),
                        ("the pivot-floor env", ~regular)] if i == 0
                       else [("all envs", torch.ones_like(regular))])
@@ -399,9 +402,10 @@ def fk_phase(device, shapes=ABA_SHAPES):
     the plain version's device time and both host times per call, and the
     byte bound (measure.fk_bytes) at the HBM rate."""
     from dwbc_tpu_torch.ops.fk_kernel import fk
-    from dwbc_tpu_torch.sim.aba import tree_const
     from dwbc_tpu_torch.sim.engine import SimParams
     from dwbc_tpu_torch.sim.fk import fused_fk
+    from dwbc_tpu_torch.sim.tree import tree_const
+    from dwbc_tpu_torch.utils import spans
     from dwbc_tpu_torch.utils.measure import (
         HBM_BYTES_PER_S, aba_model, fk_bytes, random_aba_state)
 
@@ -422,12 +426,13 @@ def fk_phase(device, shapes=ABA_SHAPES):
             err, differ = 0.0, 0
             for i, args in enumerate(sets):
                 want = fused_fk(*args)
-                before = fk.launches
+                before = spans.total("fk_kernel")
                 got = fk(*args)
                 torch.cuda.synchronize()
-                if fk.launches != before + 1:
-                    raise AssertionError(f"fk {tag}: {fk.launches - before} "
-                                         f"launches counted for one call")
+                counted = spans.total("fk_kernel") - before
+                if counted != 1:
+                    raise AssertionError(f"fk {tag}: {counted} launches "
+                                         f"counted for one call")
                 for part, g, w in zip(("R", "p", "v"), got, want):
                     if w is None:
                         if g is not None:
@@ -1489,9 +1494,6 @@ def two_rank_worker(rank, store, out_dir, device, num_envs):
     """One of the two ranks of phase 15 (this script run with
     --two-rank-worker): go1 on its half of `num_envs` envs, then its half
     of the update invariant. Writes rank<r>.npz into out_dir."""
-    from dwbc_tpu_torch.ops.aba_kernel import aba
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
-    from dwbc_tpu_torch.ops.fk_kernel import fk
     from dwbc_tpu_torch.parallel import distributed as dist
     from dwbc_tpu_torch.utils import task_registry
 
@@ -1508,8 +1510,7 @@ def two_rank_worker(rank, store, out_dir, device, num_envs):
         check_kernel_shape(env)
     runner.learn(2, log_every=1)
     runner.close()
-    launches = (contact_law.launches, aba.launches)
-    fk_count = fk.launches
+    *launches, fk_count = launch_counts()
     params = torch.cat([p.detach().reshape(-1)
                         for p in runner.model.parameters()]).cpu().numpy()
     half = slice(rank * 32, rank * 32 + 32)
@@ -1593,18 +1594,15 @@ def two_rank_phase(device, num_envs=LEGGED_ENVS):
 
 def nccl_worker(out_path, argv):
     """Phase 16's process under torchrun (this script run with
-    --nccl-worker): the train CLI's main(argv), with the kernel's launch
-    counts set to 0 just before it; writes the counts."""
-    from dwbc_tpu_torch.ops.aba_kernel import aba
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
-    from dwbc_tpu_torch.ops.fk_kernel import fk
+    --nccl-worker): the train CLI's main(argv); writes the kernels'
+    launches in it."""
     from dwbc_tpu_torch.runner import train
 
     reset_launches()
     train.main(argv)
+    contact, aba, fk = launch_counts()
     with open(out_path, "w") as f:
-        json.dump(dict(launches=contact_law.launches,
-                       aba_launches=aba.launches, fk_launches=fk.launches),
+        json.dump(dict(launches=contact, aba_launches=aba, fk_launches=fk),
                   f)
 
 
@@ -1717,87 +1715,6 @@ def cold_phase(device, n=1024):
                 card_vs_cpu_max_abs_err=err)
 
 
-HARNESS_TASKS = (("widowGo1", NUM_ENVS, NUM_STEPS),
-                 ("go1", LEGGED_ENVS, LEGGED_STEPS),
-                 ("go1_flat_lstm", LEGGED_ENVS, LEGGED_STEPS))
-HARNESS_WARMUP, HARNESS_ITERS, HARNESS_REPEATS = 1, 1, 2
-
-
-def harness_phase(extra_args=()):
-    """Phase 18: the benchmark harness (dwbc_tpu_torch/bench.py) in process
-    at full width on HARNESS_TASKS; its JSON line parsed and checked key by
-    key: (line, kernel launches)."""
-    import contextlib
-    import io
-    from dwbc_tpu_torch import bench
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    reset_launches()
-    buf = io.StringIO()
-    t0 = time.time()
-    with contextlib.redirect_stdout(buf):
-        bench.main(["--task", ",".join(t for t, _, _ in HARNESS_TASKS),
-                    "--warmup", str(HARNESS_WARMUP), "--iters",
-                    str(HARNESS_ITERS), "--repeats", str(HARNESS_REPEATS),
-                    *extra_args])
-    wall = time.time() - t0
-    line = json.loads(buf.getvalue().strip().splitlines()[-1])
-    if line["device"]["name"] != torch.cuda.get_device_name(0):
-        raise AssertionError(f"harness device {line['device']} is not "
-                             f"{torch.cuda.get_device_name(0)}")
-    if line["device"]["platform"] != "gpu" or not line["device"][
-            "power_limit_w"]:
-        raise AssertionError(f"harness device {line['device']}")
-    keys = {"metric", "value", "unit", "num_envs", "collection_time_s",
-            "learn_time_s", "iters_per_s", "runs", "min", "max", "samples",
-            "state_bytes_per_env_step", "collect_hbm_gbps",
-            "hbm_util_vs_peak", "model_flops_per_iter", "mfu_vs_f32_peak",
-            "contact_kernel"}
-    expect = fk_expect = 0
-    for (task, n, steps), t in zip(HARNESS_TASKS, line["tasks"]):
-        missing = keys - set(t)
-        nulls = [k for k in keys if t.get(k) is None]
-        k = t["contact_kernel"]
-        nulls += [f"contact_kernel.{x}" for x, v in k.items() if v is None]
-        if t["task"] != task or missing or nulls:
-            raise AssertionError(f"harness {t['task']}: missing {missing}, "
-                                 f"null {nulls}")
-        if (t["num_envs"], t["steps"], t["samples"]) != (n, steps,
-                                                          HARNESS_REPEATS):
-            raise AssertionError(f"harness {task}: {t['num_envs']} envs, "
-                                 f"{t['steps']} steps, {t['samples']} runs")
-        if t["value"] != float(np.median(t["runs"])) or not all(
-                math.isfinite(x) and x > 0 for x in t["runs"]):
-            raise AssertionError(f"harness {task}: runs {t['runs']}, value "
-                                 f"{t['value']}")
-        if k["launches_per_iter"] != steps * DECIMATION:
-            raise AssertionError(f"harness {task}: {k['launches_per_iter']} "
-                                 f"launches per iteration")
-        shape = tuple(k["shape"])
-        if shape not in {s[:3] for s in KERNEL_SHAPES}:
-            raise AssertionError(f"harness {task}: no kernel check at "
-                                 f"(ng, nb, N) = {shape}")
-        iters = HARNESS_WARMUP + HARNESS_ITERS * HARNESS_REPEATS
-        expect += iters * steps * DECIMATION
-        fk_expect += fk_launches(task, iters * steps)
-        log(f"harness {task} x {n} envs x {steps} steps: total_fps median "
-            f"{t['value']:.0f} over {t['runs']} (min {t['min']:.0f}, max "
-            f"{t['max']:.0f}), collect {t['collection_time_s']:.3f} s, learn "
-            f"{t['learn_time_s']:.4f} s; {t['state_bytes_per_env_step']:.1f} "
-            f"state bytes per env step, {t['collect_hbm_gbps']:.3f} GB/s = "
-            f"{t['hbm_util_vs_peak']:.3e} of HBM; "
-            f"{t['model_flops_per_iter']:.4g} model flops per iteration = "
-            f"{t['mfu_vs_f32_peak']:.3e} of f32; kernel {shape} "
-            f"{k['ms']:.5f} ms ({k['share_of_bound']:.1%} of "
-            f"{k['bound_ms']:.5f} ms), plain {k['plain_ms']:.4f} ms, "
-            f"{k['launches_per_iter']:.0f} launches per iteration")
-    launches = launches_since_reset("the harness", expect, fk_expect)
-    log(f"harness: bench.main in process, {launches} launches, {wall:.1f} s; "
-        f"device {line['device']}")
-    return dict(line=line, wall_s=wall, launches=launches), launches
-
-
 def _cholesky_solve_spd(A, b):
     """solve_spd as the port had it before its pivot floor: LAPACK /
     cuSOLVER Cholesky, which raises on a matrix that is not positive
@@ -1809,7 +1726,7 @@ def _cholesky_solve_spd(A, b):
 
 
 def repairs_phase(device, n=VARIANT_ENVS):
-    """Phase 19: the three repairs on the card. solve_spd on SPD, zero-pivot
+    """Phase 18: the three repairs on the card. solve_spd on SPD, zero-pivot
     and NaN matrices; aba with a massless env (IA[0] = 0); the heightfield
     at NaN coordinates; one widowGo1_adaptive env step at n envs with one
     env's velocities NaN (bad, reset, the others finite); and the wall
@@ -2004,9 +1921,8 @@ def learning_curve(iterations, task="go1_flat", train_args=()):
         task_registry.make_runner = make_runner
     torch.cuda.synchronize()
     wall = time.time() - t0
-    from dwbc_tpu_torch.ops.contact_kernel import contact_law
     launches = launches_since_reset(
-        key, None, fk_launches(task, contact_law.launches // DECIMATION))
+        key, None, fk_launches(task, launch_counts()[0] // DECIMATION))
     n_bad = int(torch.stack(blown).sum()) if blown else 0
     curve = read_curve(os.path.join(run_dir, "metrics.jsonl"))
     rows = [curve[it] for it in sorted(curve)]
@@ -2049,7 +1965,7 @@ def learning_curve(iterations, task="go1_flat", train_args=()):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"learning_curve_{key}{suffix}.json"),
               "w") as f:
-        json.dump(dict(card=card().smi, task=task, curve=key,
+        json.dump(dict(card=card(), task=task, curve=key,
                        train_args=list(train_args),
                        iterations=iterations, wall_s=wall,
                        kernel_launches=launches, bad_env_steps=n_bad,
@@ -2088,7 +2004,7 @@ def main():
     from dwbc_tpu_torch.utils.device import resolve_device
 
     device = resolve_device("cuda")
-    smi = card().smi
+    smi = card()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -2141,11 +2057,9 @@ def main():
     log(f"phases 14-17 (export -> play, two ranks, NCCL, cold path): "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    harness, n = harness_phase()
-    launches += n
     repairs, n = repairs_phase(device)
     launches += n
-    log(f"phases 18-19 (harness, repairs): {time.time() - t0:.1f} s")
+    log(f"phase 18 (repairs): {time.time() - t0:.1f} s")
 
     drop_checkpoints()
     main_row = rows[0]
@@ -2206,7 +2120,7 @@ def main():
                        recurrent=recurrent,
                        recurrent_update_check_max_abs_err=recurrent_err,
                        deploy=deploy, two_rank=two_rank, nccl=nccl,
-                       cold_path=cold, harness=harness, repairs=repairs),
+                       cold_path=cold, repairs=repairs),
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run uses one card, whatever else the host holds

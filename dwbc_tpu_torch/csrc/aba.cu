@@ -19,7 +19,7 @@
 // force moved to the parent by Featherstone's block formula); the base's
 // 6x6 Cholesky solve with the 1e-6 pivot floor; the forward pass for the
 // joint accelerations; the base's world angular and linear accelerations.
-// The joint frames are recomputed from q with sim/aba.py's joint_frame.
+// The joint frames are recomputed from q with sim/tree.py's joint_frame.
 //
 // Bound: at 21 bodies x 5,000 envs it needs 21.3 MB (the inputs, of the
 // spatial inertias the upper triangles, and the outputs), 6.4 us at
@@ -65,12 +65,12 @@
 
 #define NB_MAX 32
 #define T 32        // envs (threads) per block
-#define TABLE_W 28  // columns of the tree table (sim/aba.py)
+#define TABLE_W 28  // columns of the tree table (sim/tree.py)
 #define BODY_W 27   // floats per body and env in shared memory
 
 namespace {
 
-// tree table columns (sim/aba.py)
+// tree table columns (sim/tree.py)
 enum {
   PARENT = 0, PRISMATIC = 1, AXIS = 2, TREE_ROT = 5, TREE_POS = 14,
   PRISM_DIR = 17, ARMATURE = 20, DAMPING = 21, FRICTION = 22, LOWER = 23,

@@ -16,7 +16,7 @@
 //
 // What it computes, per env: the base's rotation from its xyzw quaternion
 // (core/maths.quat_to_mat) at q[0:3]; per body in tree order the joint
-// frame from q (sim/aba.py's joint_frame, recomputed the same way as
+// frame from q (sim/tree.py's joint_frame, recomputed the same way as
 // csrc/aba.cu does), R = R_pa Rj and p = R_pa pj + p_pa; with qd the body
 // spatial velocities [w; u] in body coordinates, the base's [R0^T qd[3:6];
 // R0^T qd[0:3]] and a body's [Rj^T w_pa; Rj^T (u_pa + w_pa x pj)] + S qd.
@@ -65,11 +65,11 @@
 
 #define NB_MAX 32
 #define T 32        // envs (threads) per block
-#define TABLE_W 28  // columns of the tree table (sim/aba.py)
+#define TABLE_W 28  // columns of the tree table (sim/tree.py)
 
 namespace {
 
-// tree table columns (sim/aba.py)
+// tree table columns (sim/tree.py)
 enum { PARENT = 0, PRISMATIC = 1, AXIS = 2, TREE_ROT = 5, TREE_POS = 14,
        PRISM_DIR = 17 };
 
@@ -110,7 +110,7 @@ __device__ __forceinline__ void cross3(const float* a, const float* b,
 }
 
 // the joint frame (Rj, pj) of a body from its table row and its joint
-// coordinate (sim/aba.py's joint_frame, the formula csrc/aba.cu uses):
+// coordinate (sim/tree.py's joint_frame, the formula csrc/aba.cu uses):
 // revolute Ra = (c I + (1 - c) a a^T) + s skew(a), Rj = tree_rot Ra, at
 // tree_pos; prismatic tree_rot at tree_pos + prism_dir q. a a^T is formed
 // in float32, where the plain version rounds the float64 product: the

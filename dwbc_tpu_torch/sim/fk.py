@@ -3,7 +3,7 @@
 `fused_fk` computes the bodies' world poses of a kinematic tree from the
 generalised coordinates q, and with qd their spatial velocities: a Python
 loop over the bodies in tree order on batched (N, 3, 3) rotations, each
-body's joint frame from `sim/aba.joint_frame`. It returns the stacks that
+body's joint frame from `sim/tree.joint_frame`. It returns the stacks that
 the contact span and the ABA op read: rotations (nb, N, 3, 3), positions
 (nb, N, 3) and velocities (nb, N, 6).
 
@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core import maths
-from .aba import TreeConst, _mtv, _mv, joint_frame
+from .tree import TreeConst, _mtv, _mv, joint_frame
 
 
 def fused_fk(tc: TreeConst, q: torch.Tensor, qd: Optional[torch.Tensor] = None

@@ -32,9 +32,9 @@ from ..ops.contact_kernel import contact_law
 from ..terrain.terrain import Heightfield
 from ..utils import spans
 from ..utils.device import resolve_device
-from .aba import tree_const
 from .contact import GeomConst, m_dir
 from .engine import PhysCtx, SimParams
+from .tree import _mv, tree_const
 
 
 class FusedOut(NamedTuple):
@@ -58,11 +58,6 @@ def init_contact_carry(model: RobotModel, num_envs: int, with_box: bool = False,
         d["boxg"] = torch.zeros((num_envs, ng, 3), device=dev)
         d["corner"] = torch.zeros((num_envs, 8, 3), device=dev)
     return d
-
-
-def _mv(R, v):
-    """R @ v over the batch: R (..., 3, 3), v (..., 3) or a constant (3,)."""
-    return torch.matmul(R, v.unsqueeze(-1)).squeeze(-1)
 
 
 def _cross0(a, b):

@@ -1,11 +1,10 @@
-"""Device measurement helpers shared by the benchmark harness
-(dwbc_tpu_torch/bench.py) and chip_smoke.py: the card's published peaks
-and its nvidia-smi identity, the contact law's bytes, operations and
-bound, random contact-law inputs, the ABA op's random inputs and bytes
-(shared with tests/test_torch_aba_kernel.py), the FK kernel's bytes, and
-CUDA-graph timing of a call; and
-the comparison of a learning curve with the JAX package's committed runs
-(`compare_curves`, `CURVES`), which reads only their metrics.jsonl.
+"""Device measurement helpers of chip_smoke.py: the card's published
+peaks and its nvidia-smi identity, the contact law's bytes, operations
+and bound, random contact-law inputs, the ABA op's random inputs and
+bytes (shared with tests/test_torch_aba_kernel.py), the FK kernel's
+bytes, and CUDA-graph timing of a call; and the comparison of a learning
+curve with the JAX package's committed runs (`compare_curves`,
+`CURVES`), which reads only their metrics.jsonl.
 
 Everything that times or queries the card raises without one; nothing
 here falls back to the CPU.
@@ -34,28 +33,14 @@ TIMED_LAUNCHES = 60
 PLAIN_LAUNCHES = 12   # ~100 elementwise kernels each
 
 
-class Card(NamedTuple):
-    """One line of `nvidia-smi --query-gpu=name,power.limit
-    --format=csv,noheader`, as printed and parsed."""
-
-    smi: str
-    name: str
-    power_limit_w: Optional[float]
-
-
-def card(index: int = 0) -> Card:
-    """The name and power limit of GPU `index` from nvidia-smi (raises
-    where nvidia-smi is missing or fails)."""
+def card() -> str:
+    """The first GPU's line of `nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader` (raises where nvidia-smi is missing or
+    fails)."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
-    line = out[index].strip()
-    name, _, limit = line.rpartition(",")
-    try:
-        watts = float(limit.strip().split()[0])
-    except (IndexError, ValueError):   # "[N/A]" on cards without a limit
-        watts = None
-    return Card(smi=line, name=name.strip(), power_limit_w=watts)
+    return out[0].strip()
 
 
 def law_bytes(ng: int, n: int) -> int:
@@ -195,7 +180,7 @@ def fk_bytes(nb: int, n: int, with_qd: bool) -> int:
     the tree table it copies (nb, TABLE_W), and the (nb, n) stacks it
     writes, rotations and positions; with qd, also qd (n, nb + 5) and the
     velocities."""
-    from ..sim.aba import TABLE_W
+    from ..sim.tree import TABLE_W
 
     floats = n * (nb + 6) + nb * TABLE_W + nb * n * (9 + 3)
     if with_qd:

@@ -6,7 +6,8 @@ record under `name`; it never synchronises the device. While a torch
 profiler records, it also enters `torch.profiler.record_function(name)`,
 so that the span lands on the profiler's clock beside the device
 activity; with no profiler it does not enter `record_function` at all.
-`count(name, n)` adds to a counter of the current record.
+`count(name, n)` adds to a counter of the current record and to the
+counter's process-lifetime total (`total(name)`).
 
 The runners call `begin_iteration(it)` and `end_iteration()` around each
 training iteration. An iteration's record is
@@ -19,7 +20,7 @@ newest RING finished records are kept (`records()`). Spans named
 `setup.*` go to the one set-up record (`setup_record()`) wherever they
 run; its `top_ns` sums those not nested in another `setup.*` span.
 Outside an iteration any other span is timed but kept nowhere, and a
-count is dropped.
+count reaches only the total.
 
 Spans of the training path (the names the benchmark's readers read):
 runner.collect, runner.learn (rl/runner.py, rl/recurrent.py);
@@ -32,17 +33,16 @@ the loss), ppo.backward and ppo.step (the KL read, the rate and the Adam
 step; rl/recurrent.py);
 setup.env, setup.runner (utils/task_registry.make_runner) and
 setup.native (loading or building a native library). Counters:
-host_sync, each point where the host waits for the card; aba_kernel,
-each launch of the articulated-body kernel (ops/aba_kernel.py);
-fk_kernel, each launch of the forward-kinematics kernel
-(ops/fk_kernel.py).
+host_sync, each point where the host waits for the card; contact_kernel,
+aba_kernel and fk_kernel, each launch of the contact, articulated-body
+and forward-kinematics kernels (ops/kernel.py).
 """
 
 from __future__ import annotations
 
 import collections
 import time
-from typing import Deque, List, Optional
+from typing import Deque, Dict, List, Optional
 
 import torch
 from torch.autograd import profiler as _profiler
@@ -60,6 +60,7 @@ _records: Deque[dict] = collections.deque(maxlen=RING)
 _current: Optional[dict] = None
 _setup = _empty_setup()
 _setup_depth = 0
+_totals: Dict[str, int] = {}
 
 
 class _Span:
@@ -119,7 +120,9 @@ def span(name: str) -> _Span:
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add `n` to the current iteration's counter `name`."""
+    """Add `n` to counter `name`'s total, and inside an iteration to the
+    current record's counter `name`."""
+    _totals[name] = _totals.get(name, 0) + n
     if _current is not None:
         c = _current["counters"]
         c[name] = c.get(name, 0) + n
@@ -149,6 +152,12 @@ def records() -> List[dict]:
 
 def setup_record() -> dict:
     return _setup
+
+
+def total(name: str) -> int:
+    """Everything counted under `name` in this process, in iterations or
+    not; `reset` keeps it."""
+    return _totals.get(name, 0)
 
 
 def reset() -> None:

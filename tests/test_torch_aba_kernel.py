@@ -21,8 +21,9 @@ import torch
 
 from dwbc_tpu_torch.ops.aba_kernel import NB_MAX, aba, check_limits
 from dwbc_tpu_torch.sim import dynamics
-from dwbc_tpu_torch.sim.aba import fused_aba, tree_const
+from dwbc_tpu_torch.sim.aba import fused_aba
 from dwbc_tpu_torch.sim.engine import SimParams, _limit_torques
+from dwbc_tpu_torch.sim.tree import tree_const
 from dwbc_tpu_torch.utils import spans
 from dwbc_tpu_torch.utils.measure import (ABA_TREES, aba_args, aba_model,
                                           random_aba_state)
@@ -51,13 +52,13 @@ def test_cpu_op_is_the_plain_aba_and_matches_dynamics(robot, extra_torques):
     s = random_aba_state(m, 64, seed=1, past_limits=extra_torques != "zeroed")
     args, kin, t = aba_args(m, s, "cpu")
 
-    launches = aba.launches
+    launches = spans.total("aba_kernel")
     rec = spans.begin_iteration(0)
     try:
         qdd, ang, lin = aba(tc, *args)
     finally:
         spans.end_iteration()
-    assert aba.launches == launches
+    assert spans.total("aba_kernel") == launches
     assert "aba_kernel" not in rec["counters"]
     for got, want in zip((qdd, ang, lin), fused_aba(tc, *args)):
         assert torch.equal(got, want)
@@ -117,10 +118,10 @@ def test_cuda_kernel_matches_plain_aba(robot, n):
         s["inertia"][singular] *= 1e-9
     args, _, _ = aba_args(m, s, "cuda")
     want = fused_aba(tc, *args)
-    launches = aba.launches
+    launches = spans.total("aba_kernel")
     got = aba(tc, *args)
     torch.cuda.synchronize()
-    assert aba.launches == launches + 1
+    assert spans.total("aba_kernel") == launches + 1
     keep = torch.ones(n, dtype=torch.bool, device="cuda")
     if singular is not None:
         keep[singular] = False

@@ -22,9 +22,9 @@ import torch
 from dwbc_tpu_torch.core import maths
 from dwbc_tpu_torch.ops.fk_kernel import NB_MAX, check_limits, fk
 from dwbc_tpu_torch.sim import dynamics, engine, fused
-from dwbc_tpu_torch.sim.aba import _mtv, _mv, joint_frame, tree_const
 from dwbc_tpu_torch.sim.engine import SimParams
 from dwbc_tpu_torch.sim.fk import fused_fk
+from dwbc_tpu_torch.sim.tree import _mtv, _mv, joint_frame, tree_const
 from dwbc_tpu_torch.terrain import terrain as terr
 from dwbc_tpu_torch.utils import spans
 from dwbc_tpu_torch.utils.measure import (ABA_TREES, aba_model, fk_bytes,
@@ -77,13 +77,13 @@ def test_cpu_op_is_the_plain_fk_and_matches_dynamics(robot, with_qd):
     q, qd = state(m, 64, seed=1)
     arg = qd if with_qd else None
 
-    launches = fk.launches
+    launches = spans.total("fk_kernel")
     rec = spans.begin_iteration(0)
     try:
         R, p, v = fk(tc, q, arg)
     finally:
         spans.end_iteration()
-    assert fk.launches == launches
+    assert spans.total("fk_kernel") == launches
     assert "fk_kernel" not in rec["counters"]
     want = fused_fk(tc, q, arg)
     assert torch.equal(R, want[0]) and torch.equal(p, want[1])
@@ -198,10 +198,10 @@ def test_cuda_kernel_matches_plain_fk(robot, n, with_qd):
     q, qd = state(m, n, seed=n, device="cuda")
     arg = qd if with_qd else None
     want = fused_fk(tc, q, arg)
-    launches = fk.launches
+    launches = spans.total("fk_kernel")
     got = fk(tc, q, arg)
     torch.cuda.synchronize()
-    assert fk.launches == launches + 1
+    assert spans.total("fk_kernel") == launches + 1
     for g, w in zip(got, want):
         if w is None:
             assert g is None

@@ -27,10 +27,9 @@ from dwbc_tpu_torch.envs.config import TerrainCfg, WidowGo1Cfg
 from dwbc_tpu_torch.envs.widowgo1 import WidowGo1Env
 from dwbc_tpu_torch.interop import env_state_from_numpy
 from dwbc_tpu_torch.models.actor_critic import ActorCritic
-from dwbc_tpu_torch.ops.contact_kernel import contact_law
 from dwbc_tpu_torch.rl.runner import Rollout, init_at_random_ep_len
 from dwbc_tpu_torch.utils import device as device_lib
-from dwbc_tpu_torch.utils import task_registry
+from dwbc_tpu_torch.utils import spans, task_registry
 
 N = 8
 COUNTER = 3.0
@@ -115,7 +114,7 @@ def test_rollout_collect_on_port():
     state = init_at_random_ep_len(state, env.max_episode_length, gen)
     torch.manual_seed(0)
     rollout = Rollout(env, ActorCritic(), spec.ppo_cfg, num_steps=3)
-    launches = contact_law.launches
+    launches = spans.total("contact_kernel")
     for hist in (True, False):
         state, obs, traj, stats, nres = rollout.collect(
             state, obs, 1.0, torch.Generator().manual_seed(1), hist)
@@ -128,7 +127,8 @@ def test_rollout_collect_on_port():
             assert torch.isfinite(t.float()).all(), name
         assert torch.isfinite(state.robot.q).all()
         assert set(stats) == set(rollout.stat_keys())
-    assert contact_law.launches == launches  # the CPU runs the plain law
+    # the CPU runs the plain law
+    assert spans.total("contact_kernel") == launches
 
 
 def test_cuda_requested_without_a_card_raises(monkeypatch):
