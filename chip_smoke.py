@@ -51,6 +51,16 @@ Phases, each of which raises on failure (exit code != 0):
      order is cuBLAS's); per shape its device time per launch,
      the plain version's, both host times and the byte bound
      (measure.fk_bytes) at 3.35 TB/s;
+  3d. lstm kernels: ops/lstm_kernel.lstm_sequence (the forward and the
+     backward gate kernels of csrc/lstm.cu) against the same op with its
+     plain gate steps on the same card tensors at LSTM_SHAPES (a
+     minibatch of go1_flat_lstm's unroll, 2 memories x 24 steps x 1024
+     rows x 512 units, and 2 x 5 x 33 x 64), resets on ~5% of the rows,
+     forward and backward: outputs and gradients finite and within
+     relative 1e-5, T launches of each kernel a sequence; per shape each
+     kernel's device time for one step (CUDA graph over N_SETS buffer
+     sets) beside the plain step's and its byte bound
+     (measure.lstm_bytes), and the whole sequence's forward and backward;
   4. step check: one widowGo1 env step on the card (the kernel) against
      the same step on the CPU (the plain law), 64 envs, same state;
   5. slice: make_env("widowGo1", 8192 envs) on the full Perlin terrain, an
@@ -102,10 +112,15 @@ Phases, each of which raises on failure (exit code != 0):
      collect and zero on the rows of the envs that just reset;
  12. recurrent: make_runner("go1_flat_lstm", 4096 envs), two iterations
      through RecurrentRunner.learn and a third by hand (collect and
-     update timed apart; 288 launches); and one recurrent `update` of the
-     task's registered policy (LSTM 512, heads 512-256-128) on the card
-     against the CPU (T = 8, N = 16), parameters within rtol 1e-4 / atol
-     1e-5;
+     update timed apart; 288 launches; one launch of each LSTM kernel a
+     step of every minibatch's unroll, 1440 each); and one recurrent
+     `update` of the task's registered policy (LSTM 512, heads
+     512-256-128) on the card against the CPU (T = 8, N = 16) in
+     lockstep: at each of its 20 Adam steps the CPU's clipped gradients
+     within RECURRENT_GRAD_RTOL of the card's, leaf by leaf, and then
+     replaced by them, so both sides step with the same gradients; the
+     losses within rtol 1e-4, the learning rates equal, the parameters
+     within rtol 1e-4 / atol 1e-5;
  13. the other robots: cassie, a1 and anymal_b, one iteration each at
      4096 envs (96 launches each), so that every timed kernel shape is
      also launched from an env;
@@ -150,8 +165,9 @@ and the ABA kernel to have launched once per physics substep each, and
 the FK kernel once per substep, once per env step for the terrain's
 tangent planes and, in widowGo1's family, once more per env step for the
 EE pose (launches_since_reset, fk_launches).
-The last two lines are the kernels' JSON record (contact_law, aba and fk:
-launches on the main path, device and plain ms, bound) and
+The last two lines are the kernels' JSON record (contact_law, aba, fk,
+lstm_forward and lstm_backward: launches on the main path, device and
+plain ms, bound) and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Results are also written to chiprun_out/chip_smoke.json.
 """
@@ -209,6 +225,14 @@ ABA_SHAPES = (("widowGo1", 5000), ("widowGo1", NUM_ENVS),
               ("go1", LEGGED_ENVS), ("widowGo1", PLAY_ENVS),
               ("go1", PLAY_ENVS))
 ABA_RTOL = 1e-5
+# (memories, steps, rows, units) of the LSTM kernels' check: a minibatch of
+# the recurrent cell (go1_flat_lstm's LSTM 512, 1,024 of its 4,096 envs, 24
+# steps), and odd sizes
+LSTM_SHAPES = ((2, LEGGED_STEPS, LEGGED_ENVS // 4, 512), (2, 5, 33, 64))
+LSTM_RTOL = 1e-5
+# the recurrent update check's bound on each Adam step's gradients card
+# vs CPU, leaf by leaf (relative norm)
+RECURRENT_GRAD_RTOL = 1e-4
 
 
 def log(msg):
@@ -228,8 +252,9 @@ def host_us(fn, args, calls=20):
 
 
 # the hand kernels' launch counters (utils/spans), and their totals at the
-# last reset_launches()
-KERNEL_COUNTERS = ("contact_kernel", "aba_kernel", "fk_kernel")
+# last reset_launches(): the env step's three, then the LSTM unroll's two
+KERNEL_COUNTERS = ("contact_kernel", "aba_kernel", "fk_kernel",
+                   "lstm_kernel", "lstm_backward_kernel")
 _AT_RESET = dict.fromkeys(KERNEL_COUNTERS, 0)
 
 
@@ -240,7 +265,8 @@ def reset_launches():
 
 
 def launch_counts():
-    """(contact, ABA, FK) kernel launches since reset_launches()."""
+    """(contact, ABA, FK, LSTM forward, LSTM backward) kernel launches
+    since reset_launches()."""
     from dwbc_tpu_torch.utils import spans
     return tuple(spans.total(k) - _AT_RESET[k] for k in KERNEL_COUNTERS)
 
@@ -254,9 +280,10 @@ def fk_launches(task, steps):
     return steps * (DECIMATION + 1 + int(task.startswith("widowGo1")))
 
 
-# FK launches held to their expected count on the main path, for the
-# kernels line
+# FK and LSTM launches held to their expected counts on the main path, for
+# the kernels line
 FK_CHECKED = [0]
+LSTM_CHECKED = [0]
 
 
 def check_fk(what, got, want):
@@ -272,7 +299,7 @@ def launches_since_reset(what, expect, fk_expect):
     contact and the ABA kernel one each per physics substep, so the two
     counts must agree, and equal `expect` where it is not None; the FK
     kernel `fk_expect` (fk_launches). Returns the contact count."""
-    contact, aba, fk = launch_counts()
+    contact, aba, fk, *_ = launch_counts()
     want = contact if expect is None else expect
     if (contact, aba) != (want, want):
         raise AssertionError(f"{what} launched the contact kernel {contact} "
@@ -284,23 +311,24 @@ def launches_since_reset(what, expect, fk_expect):
 
 def build_phase():
     """Phase 2: compile the hand kernels with nvcc (force) and log ptxas's
-    register and spill report; raises where the ABA or the FK kernel
-    spills."""
-    from dwbc_tpu_torch.ops import aba_kernel, contact_kernel, fk_kernel
-    for mod, spill_free in ((contact_kernel, False), (aba_kernel, True),
-                            (fk_kernel, True)):
+    register and spill report; raises where the ABA, the FK or the LSTM
+    kernels spill."""
+    from dwbc_tpu_torch.ops import (aba_kernel, contact_kernel, fk_kernel,
+                                    lstm_kernel)
+    for k, spill_free in ((contact_kernel.KERNEL, False),
+                          (aba_kernel.KERNEL, True), (fk_kernel.KERNEL, True),
+                          (lstm_kernel.FORWARD, True)):
         t0 = time.time()
-        report = mod.build(force=True)
-        source = mod.KERNEL.source
-        log(f"build: {os.path.relpath(source, ROOT)} -> "
-            f"{os.path.relpath(mod.KERNEL.library, ROOT)} in "
+        report = k.build(force=True)
+        log(f"build: {os.path.relpath(k.source, ROOT)} -> "
+            f"{os.path.relpath(k.library, ROOT)} in "
             f"{time.time() - t0:.2f} s")
         for line in report.splitlines():
             if any(w in line for w in ("properties", "registers", "spill")):
                 log(f"  ptxas: {line.strip()}")
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill", report)]
         if spill_free and (not spills or any(spills)):
-            raise AssertionError(f"{os.path.basename(source)}: spill "
+            raise AssertionError(f"{os.path.basename(k.source)}: spill "
                                  f"bytes {spills} in ptxas's report")
 
 
@@ -470,6 +498,226 @@ def fk_phase(device, shapes=ABA_SHAPES):
                 f"{wrapper_us:.1f} us/call, plain host {plain_us:.0f} "
                 f"us/call")
             rows.append(row)
+    return rows
+
+
+def lstm_inputs(m, t_len, b, h, seed, device):
+    """Random inputs of ops/lstm_kernel.lstm_sequence: projections and
+    carries of the scale a trained LSTM sees, orthogonal-scale recurrent
+    kernels, and resets on about 5% of the rows at every step, at least
+    one at step 0, in the middle and at the last step."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    keep = (torch.rand((t_len, b), generator=g, device=device) > 0.05)
+    keep[0, 0] = keep[t_len // 2, b // 2] = keep[-1, b - 1] = False
+    keep = keep.float()
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=device)
+
+    return (r(m, t_len, b, 4 * h), r(m, b, h, scale=0.5) * keep[0][:, None],
+            r(m, b, h, scale=0.5) * keep[0][:, None],
+            r(m, 4 * h, h, scale=h ** -0.5), keep)
+
+
+def library_step(kind, m, b, h, device, seed):
+    """One step of the library route, ATen's fused LSTM cell
+    (aten._thnn_fused_lstm_cell, its backward _impl) with the done mask
+    as separate ops, and one argument set for it (a step with a next one,
+    both memories as M x B rows): forward the cell, then c and h times
+    the next keep; backward dh = dy + dh_next keep and dc = dc_next keep,
+    then the cell's backward."""
+    aten = torch.ops.aten
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=device)
+    rows = m * b
+    k = (torch.rand((rows, 1), generator=g, device=device) > 0.05).float()
+    if kind == "forward":
+        def step(ig, hg, cx, k, c_next, h_next):
+            hy, cy, _ = aten._thnn_fused_lstm_cell(ig, hg, cx)
+            torch.mul(cy, k, out=c_next)
+            torch.mul(hy, k, out=h_next)
+        return step, (r(rows, 4 * h), r(rows, 4 * h), r(rows, h), k,
+                      r(rows, h), r(rows, h))
+
+    def step(dy, dh_next, k, dc_next, cx, cy, ws):
+        aten._thnn_fused_lstm_cell_backward_impl(
+            torch.addcmul(dy, dh_next, k), dc_next * k, cx, cy, ws, False)
+    _, cy, ws = aten._thnn_fused_lstm_cell(r(rows, 4 * h), r(rows, 4 * h),
+                                           r(rows, h))
+    return step, (r(rows, h), r(rows, h), k, r(rows, h), r(rows, h), cy, ws)
+
+
+def library_sequence(xproj, c0, h0, wh, keep, dy, dc_last):
+    """lstm_sequence's forward and backward by the library route
+    (library_step's ops a step, each memory's rows stacked as M x B, the
+    products as in the op): (y, the final c, and the gradients of xproj,
+    c0, h0 and wh), in the op's layouts."""
+    aten = torch.ops.aten
+    m, t_len, b, h4 = xproj.shape
+    h, rows = h4 // 4, m * b
+    xp = xproj.transpose(0, 1).reshape(t_len, rows, h4)
+    k = keep.repeat(1, m)[..., None]
+    wht = wh.transpose(1, 2)
+    cx, hx = c0.reshape(rows, h), h0.reshape(rows, h)
+    ys, saved = [], []
+    for t in range(t_len):
+        hg = torch.bmm(hx.view(m, b, h), wht).view(rows, h4)
+        hy, cy, ws = aten._thnn_fused_lstm_cell(xp[t], hg, cx)
+        ys.append(hy)
+        saved.append((cx, hx, cy, ws))
+        if t + 1 < t_len:
+            cx, hx = cy * k[t + 1], hy * k[t + 1]
+    dyv = dy.transpose(0, 1).reshape(t_len, rows, h)
+    dc, dh_next, dgs = dc_last.reshape(rows, h), None, [None] * t_len
+    for t in reversed(range(t_len)):
+        dh = dyv[t]
+        if dh_next is not None:
+            dh, dc = torch.addcmul(dh, dh_next, k[t + 1]), dc * k[t + 1]
+        cx, _, cy, ws = saved[t]
+        dgs[t], dc, _ = aten._thnn_fused_lstm_cell_backward_impl(
+            dh, dc, cx, cy, ws, False)
+        dh_next = torch.bmm(dgs[t].view(m, b, h4), wh).view(rows, h)
+    dg = torch.stack(dgs).view(t_len, m, b, h4).transpose(0, 1)
+    hm = torch.stack([s[1] for s in saved]).view(t_len, m, b, h)
+    dwh = torch.bmm(dg.reshape(m, t_len * b, h4).transpose(1, 2),
+                    hm.transpose(0, 1).reshape(m, t_len * b, h))
+    return (torch.stack(ys).view(t_len, m, b, h).transpose(0, 1),
+            saved[-1][2].view(m, b, h), dg, dc.view(m, b, h),
+            dh_next.view(m, b, h), dwh)
+
+
+def lstm_phase(device, shapes=LSTM_SHAPES):
+    """Phase 3d: the LSTM sequence op with its kernels
+    (ops/lstm_kernel.lstm_sequence) against the same op with the plain
+    gate steps (plain_sequence) on the same card tensors at LSTM_SHAPES,
+    forward and backward with random output gradients: y, the final c and
+    the gradients of the projections, the first carry and the recurrent
+    kernels finite and within LSTM_RTOL (rel_err); T launches of each
+    kernel counted per sequence, none for the plain one. Then, per shape,
+    each kernel's device time per launch for one step (T = 2, t = 0: a
+    step with a next one), a CUDA graph over N_SETS buffer sets, beside
+    its plain step's and both host times, and its byte bound
+    (measure.lstm_bytes) at the HBM rate; and the whole sequence's
+    forward and backward, kernels against plain, on the stream's clock
+    (host gaps included)."""
+    from dwbc_tpu_torch.ops import lstm_kernel
+    from dwbc_tpu_torch.utils import spans
+    from dwbc_tpu_torch.utils.measure import HBM_BYTES_PER_S, lstm_bytes
+
+    names = ("y", "c", "dxproj", "dc0", "dh0", "dwh")
+    counters = ("lstm_kernel", "lstm_backward_kernel")
+    rows = []
+    for m, t_len, b, h in shapes:
+        tag = f"M={m} T={t_len} B={b} H={h}"
+        xs = lstm_inputs(m, t_len, b, h, seed=t_len * b + h, device=device)
+
+        def run(op):
+            """The op forward and backward from xs: (y, c and the
+            gradients, launches counted, ms on the stream's clock)."""
+            args = [x.clone().requires_grad_() for x in xs[:4]]
+            before = [spans.total(k) for k in counters]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            y, c = op(*args, xs[4])
+            g = torch.Generator(device=device).manual_seed(1)
+            dy = torch.randn(y.shape, generator=g, device=device)
+            dc = torch.randn(c.shape, generator=g, device=device)
+            torch.autograd.backward((y, c), (dy, dc))
+            end.record()
+            torch.cuda.synchronize()
+            counted = [spans.total(k) - n for k, n in zip(counters, before)]
+            return ([y.detach(), c.detach()] + [a.grad for a in args],
+                    counted, start.elapsed_time(end))
+
+        # each twice, the second timed: the first call loads the library
+        (got, counted, seq_ms), (want, plain_counted, plain_seq_ms) = [
+            run(op) for op in (lstm_kernel.lstm_sequence,
+                               lstm_kernel.plain_sequence) * 2][2:]
+        if counted != [t_len, t_len] or plain_counted != [0, 0]:
+            raise AssertionError(f"lstm {tag}: launches {counted} (kernels) "
+                                 f"and {plain_counted} (plain), expected "
+                                 f"{t_len} each and none")
+        errs = {}
+        for name, g_, w_ in zip(names, got, want):
+            if not bool(torch.isfinite(g_).all()):
+                raise AssertionError(f"lstm {tag}: non-finite {name}")
+            errs[name] = rel_err(g_, w_)
+            if not errs[name] < LSTM_RTOL:
+                raise AssertionError(f"lstm {tag} {name}: relative error "
+                                     f"{errs[name]:.3g} >= {LSTM_RTOL}")
+
+        def run_library():
+            """library_sequence from xs with run's output gradients:
+            (its results, ms on the stream's clock)."""
+            g = torch.Generator(device=device).manual_seed(1)
+            dy = torch.randn((m, t_len, b, h), generator=g, device=device)
+            dc = torch.randn((m, b, h), generator=g, device=device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            out = library_sequence(*xs, dy, dc)
+            end.record()
+            torch.cuda.synchronize()
+            return out, start.elapsed_time(end)
+
+        lib, lib_seq_ms = [run_library() for _ in range(2)][1]
+        lib_errs = {name: rel_err(g_, w_)
+                    for name, g_, w_ in zip(names, lib, want)}
+        # one step alone, with a next one (T = 2, t = 0)
+        fwd, bwd = lstm_kernel.steps(True, (2, b, h, m))
+        row = dict(m=m, t=t_len, b=b, h=h, rel_err=errs,
+                   sequence_ms=seq_ms, plain_sequence_ms=plain_seq_ms,
+                   library_sequence_ms=lib_seq_ms, library_rel_err=lib_errs)
+        for kind, step, plain in (
+                ("forward", fwd, lstm_kernel.forward_step),
+                ("backward", bwd, lstm_kernel.backward_step)):
+            sets = []
+            for i in range(N_SETS):
+                x = lstm_inputs(m, 2, b, h, seed=100 + i, device=device)
+                g4 = torch.randn((m, 2, b, 4 * h), device=device)
+                one = torch.randn((m, 2, b, h), device=device)
+                hb = torch.randn((m, b, h), device=device)
+                if kind == "forward":   # xproj, hh, keep, act, c, y, cm, hm
+                    sets.append((x[0], torch.randn((m, b, 4 * h),
+                                                   device=device), x[4],
+                                 g4.sigmoid(),
+                                 *(one.clone() for _ in range(4))))
+                else:   # act, c, cm, keep, dy, dh_next, dc_next, dxp, dc_prev
+                    sets.append((g4.sigmoid(), one, one.clone(), x[4],
+                                 one.clone(), hb, hb.clone(),
+                                 torch.empty_like(g4),
+                                 torch.empty_like(hb)))
+            ms = device_ms(lambda *a: step(0, *a), sets, TIMED_LAUNCHES)
+            plain_ms = device_ms(lambda *a: plain(0, *a), sets,
+                                 PLAIN_LAUNCHES)
+            wrapper_us = host_us(lambda *a: step(0, *a), sets[0])
+            lib_step = library_step(kind, m, b, h, device, 0)[0]
+            lib_sets = [library_step(kind, m, b, h, device, 100 + i)[1]
+                        for i in range(N_SETS)]
+            library_ms = device_ms(lib_step, lib_sets, TIMED_LAUNCHES)
+            lib_us = host_us(lib_step, lib_sets[0])
+            nbytes = lstm_bytes(m, b, h, kind == "backward")
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            row[kind] = dict(ms=ms, plain_ms=plain_ms, host_us=wrapper_us,
+                             library_ms=library_ms, library_host_us=lib_us,
+                             bytes=nbytes, bound_ms=bound_ms,
+                             bound_by="bytes", share_of_bound=bound_ms / ms)
+            log(f"kernel lstm {kind} {tag}: ms={ms:.5f} "
+                f"({bound_ms / ms:.1%} of the bound) plain_ms={plain_ms:.4f} "
+                f"library_ms={library_ms:.5f} bound_ms={bound_ms:.5f} "
+                f"({nbytes / 1e6:.2f} MB, bytes); launch host "
+                f"{wrapper_us:.1f} us, library {lib_us:.1f} us")
+        log(f"lstm sequence {tag}: relative errors "
+            + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+            + f"; forward + backward {seq_ms:.3f} ms with the kernels, "
+            f"{plain_seq_ms:.3f} ms plain, {lib_seq_ms:.3f} ms by the "
+            f"library route (stream clock, host gaps included); library "
+            f"route against plain: "
+            + " ".join(f"{k}={v:.3g}" for k, v in lib_errs.items()))
+        rows.append(row)
     return rows
 
 
@@ -1252,6 +1500,16 @@ def recurrent_phase(device):
     launches = launches_since_reset(
         "go1_flat_lstm", 3 * LEGGED_STEPS * DECIMATION,
         fk_launches("go1_flat_lstm", 3 * LEGGED_STEPS))
+    # each update: one launch of each LSTM kernel a step of every
+    # minibatch's unroll
+    cfg = runner.alg.cfg
+    lstm_want = 3 * cfg.num_learning_epochs * cfg.num_mini_batches \
+        * LEGGED_STEPS
+    lstm = list(launch_counts()[3:])
+    if lstm != [lstm_want, lstm_want]:
+        raise AssertionError(f"go1_flat_lstm launched the LSTM kernels "
+                             f"{lstm} times, expected {lstm_want} each")
+    LSTM_CHECKED[0] += lstm_want
     if tuple(traj.obs.shape) != (LEGGED_STEPS, LEGGED_ENVS, 48):
         raise AssertionError(f"traj.obs shape {tuple(traj.obs.shape)}")
     for name, t in (("obs", traj.obs), ("rewards", traj.rewards),
@@ -1274,7 +1532,8 @@ def recurrent_phase(device):
     if len(rows) != 2 or any(set(r) != keys for r in rows):
         raise AssertionError(f"go1_flat_lstm metrics.jsonl: {rows}")
     fps = LEGGED_STEPS * LEGGED_ENVS / (collect_s + update_s)
-    log(f"go1_flat_lstm x {LEGGED_ENVS} envs (kernel shape {shape}): "
+    log(f"go1_flat_lstm x {LEGGED_ENVS} envs (kernel shape {shape}, "
+        f"{lstm_want} launches of each LSTM kernel): "
         f"RecurrentRunner.learn iterations {iteration_s[0]:.3f} s, "
         f"{iteration_s[1]:.3f} s; by hand: collect {collect_s:.3f} s, "
         f"update {update_s:.3f} s, {fps:.0f} env-steps/s; step rewards "
@@ -1288,7 +1547,16 @@ def recurrent_phase(device):
 def recurrent_update_check(device):
     """One recurrent update of go1_flat_lstm's policy (its registered
     widths) on the card against the CPU from the same weights, trajectory
-    (T = 8, N = 16), initial carry and permutation."""
+    (T = 8, N = 16), initial carry and permutation, in lockstep: at each of
+    its Adam steps the CPU's clipped gradients are held to the card's
+    (RECURRENT_GRAD_RTOL, leaf by leaf) and then replaced by them, so both
+    sides step with the same gradients; then the losses, the learning
+    rates and every parameter card vs CPU. Adam divides each gradient by
+    its own running scale, so where both sides stepped with their own
+    gradients, rounding of other summation orders in an element whose
+    gradient nearly cancels moved it by a share of the learning rate, and
+    an elementwise comparison of the parameters after 20 steps read that
+    rounding and no fault."""
     from dwbc_tpu_torch.models.actor_critic_recurrent import (
         ActorCriticRecurrent)
     from dwbc_tpu_torch.rl import ppo
@@ -1324,31 +1592,68 @@ def recurrent_update_check(device):
     last = f32(rng.normal(size=(N, 1)))
     perm = torch.as_tensor(rng.permutation(N))
 
-    results, rates = {}, {}
-    for name, dev in (("cpu", torch.device("cpu")), ("card", device)):
+    names = {}
+
+    def update(dev, hook):
+        """The update on `dev` from a copy of cpu_model, hook(model)
+        called before each Adam step; (parameters, rate, losses) on the
+        CPU."""
         model = copy.deepcopy(cpu_model).to(dev)
+        names.update({id(p): k for k, p in model.named_parameters()})
         state = ppo.PPOState(cfg, model)
+        state.opt.register_step_pre_hook(lambda *_: hook(state.params))
         alg = RecurrentPPO(None, model, cfg, num_steps=T)
-        alg.update(state, RecurrentTransition(*(x.to(dev) for x in traj)),
-                   tuple(tuple(x.to(dev) for x in c) for c in h0),
-                   last.to(dev), perm=perm.to(dev))
-        results[name] = {k: v.cpu() for k, v in model.state_dict().items()}
-        rates[name] = state.learning_rate
-    if rates["cpu"] != rates["card"]:
-        raise AssertionError(f"learning rates differ: {rates}")
+        metrics = alg.update(
+            state, RecurrentTransition(*(x.to(dev) for x in traj)),
+            tuple(tuple(x.to(dev) for x in c) for c in h0), last.to(dev),
+            perm=perm.to(dev))
+        return ({k: v.cpu() for k, v in model.state_dict().items()},
+                state.learning_rate, {k: v.cpu() for k, v in metrics.items()})
+
+    card_grads, grad_errs = [], []
+    card, card_rate, card_losses = update(device, lambda params: (
+        card_grads.append([p.grad.detach().to("cpu", copy=True)
+                           for p in params])))
+
+    def lockstep(params):
+        want = card_grads[len(grad_errs)]
+        grad_errs.append({names[id(p)]: rel_err(p.grad, w)
+                          for p, w in zip(params, want)})
+        for p, w in zip(params, want):
+            p.grad.copy_(w)
+
+    cpu, cpu_rate, cpu_losses = update(torch.device("cpu"), lockstep)
+    steps = cfg.num_learning_epochs * cfg.num_mini_batches
+    if len(card_grads) != steps or len(grad_errs) != steps:
+        raise AssertionError(f"recurrent update check: {len(card_grads)} "
+                             f"and {len(grad_errs)} Adam steps, expected "
+                             f"{steps}")
+    grad_err, step, leaf = max((e, i, k) for i, errs in enumerate(grad_errs)
+                               for k, e in errs.items())
+    if not grad_err < RECURRENT_GRAD_RTOL:
+        raise AssertionError(f"recurrent update check: step {step} {leaf} "
+                             f"gradient relative error {grad_err:.3g} >= "
+                             f"{RECURRENT_GRAD_RTOL}")
+    if cpu_rate != card_rate:
+        raise AssertionError(f"learning rates differ: CPU {cpu_rate}, card "
+                             f"{card_rate}")
+    for k, want in cpu_losses.items():
+        torch.testing.assert_close(card_losses[k], want, rtol=1e-4, atol=0,
+                                   msg=lambda m: f"{k}: {m}")
     start = cpu_model.state_dict()
     err = 0.0
-    for k, want in results["cpu"].items():
+    for k, want in cpu.items():
         if torch.equal(want, start[k]):
             raise AssertionError(f"recurrent update check: {k} did not move")
-        torch.testing.assert_close(results["card"][k], want, rtol=1e-4,
-                                   atol=1e-5, msg=lambda m: f"{k}: {m}")
-        err = max(err, float((results["card"][k] - want).abs().max()))
-    log(f"recurrent update check: card vs CPU, T={T} N={N}, LSTM "
-        f"{policy.rnn_hidden_size}, heads {policy.actor_hidden_dims}, "
-        f"parameters max_abs_err={err:.3g}, learning rate "
-        f"{rates['card']:.3g}")
-    return err
+        torch.testing.assert_close(card[k], want, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m: f"{k}: {m}")
+        err = max(err, float((card[k] - want).abs().max()))
+    log(f"recurrent update check: card vs CPU in lockstep, T={T} N={N}, "
+        f"LSTM {policy.rnn_hidden_size}, heads {policy.actor_hidden_dims}, "
+        f"{steps} Adam steps: gradients' largest relative error "
+        f"{grad_err:.3g} (step {step}, {leaf}), parameters "
+        f"max_abs_err={err:.3g}, learning rate {card_rate:.3g}")
+    return dict(max_abs_err=err, grad_rel_err=grad_err)
 
 
 def deploy_phase(device, task, ckpt):
@@ -1510,7 +1815,7 @@ def two_rank_worker(rank, store, out_dir, device, num_envs):
         check_kernel_shape(env)
     runner.learn(2, log_every=1)
     runner.close()
-    *launches, fk_count = launch_counts()
+    *launches, fk_count = launch_counts()[:3]
     params = torch.cat([p.detach().reshape(-1)
                         for p in runner.model.parameters()]).cpu().numpy()
     half = slice(rank * 32, rank * 32 + 32)
@@ -1600,7 +1905,7 @@ def nccl_worker(out_path, argv):
 
     reset_launches()
     train.main(argv)
-    contact, aba, fk = launch_counts()
+    contact, aba, fk, *_ = launch_counts()
     with open(out_path, "w") as f:
         json.dump(dict(launches=contact, aba_launches=aba, fk_launches=fk),
                   f)
@@ -2013,6 +2318,7 @@ def main():
     rows = kernel_phase(device)
     aba_rows = aba_phase(device)
     fk_rows = fk_phase(device)
+    lstm_rows = lstm_phase(device)
     step_check(device)
     collects, launches = slice_phase(device, profile)
     training, n = train_phase(device, profile)
@@ -2105,10 +2411,26 @@ def main():
                                    "bound_ms", "share_of_bound",
                                    "max_rel_err", "differing_entries")}
                 for r in fk_rows]))
+    # the recurrent phase held the LSTM kernels' launches to one a step
+    # of every unroll, each way
+    lstm_row = lstm_rows[0]
+    for kind in ("forward", "backward"):
+        k = lstm_row[kind]
+        kernels.append(dict(
+            name=f"lstm_{kind}", route="cuda",
+            source="dwbc_tpu_torch/csrc/lstm.cu", replaces=None,
+            launches=LSTM_CHECKED[0],
+            max_rel_err=max(max(r["rel_err"].values()) for r in lstm_rows),
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"],
+            share_of_bound=k["share_of_bound"],
+            shapes=[dict(m=r["m"], b=r["b"], h=r["h"], **r[kind])
+                    for r in lstm_rows]))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, kernel_rows=rows,
                        aba_rows=aba_rows, fk_rows=fk_rows,
+                       lstm_rows=lstm_rows,
                        collects=collects, training=training,
                        update_check_max_abs_err=update_err,
                        bf16_update_check=dict(
@@ -2118,7 +2440,7 @@ def main():
                        osc_target_call_ms=osc_ms, legged=legged,
                        legged_step_check_max_abs_err=legged_step_err,
                        recurrent=recurrent,
-                       recurrent_update_check_max_abs_err=recurrent_err,
+                       recurrent_update_check=recurrent_err,
                        deploy=deploy, two_rank=two_rank, nccl=nccl,
                        cold_path=cold, repairs=repairs),
                   f, indent=1)

@@ -27,6 +27,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops import lstm_kernel
 from .actor_critic import _ACT, _mlp, flax_init_
 
 
@@ -163,10 +164,32 @@ class ActorCriticRecurrent(nn.Module):
     def unroll(self, carry, obs_seq, dones_seq):
         """BPTT over (T, B, D) with per-step done resets — the masked-loop
         equivalent of split_and_pad_trajectories (utils/utils.py:33-71).
-        Returns (carry, (means (T, B, A), values (T, B, 1)))."""
-        means, values = [], []
-        for obs, dones in zip(obs_seq, dones_seq):
-            carry, mean, value = self.step(carry, obs, dones)
-            means.append(mean)
-            values.append(value)
-        return carry, (torch.stack(means), torch.stack(values))
+        Returns (carry, (means (T, B, A), values (T, B, 1))), what `step`
+        gives step by step. The LSTM runs as one sequence op
+        (ops/lstm_kernel.py): both memories' input projections once over
+        all T x B rows, the recurrence a step at a time, then both heads
+        once over all rows. The GRU keeps the loop of steps."""
+        if self.rnn_type != "lstm":
+            means, values = [], []
+            for obs, dones in zip(obs_seq, dones_seq):
+                carry, mean, value = self.step(carry, obs, dones)
+                means.append(mean)
+                values.append(value)
+            return carry, (torch.stack(means), torch.stack(values))
+        T, B, _ = obs_seq.shape
+        mems = (self.memory_a, self.memory_c)
+        wi = torch.stack([m.wi.weight for m in mems])
+        wh = torch.stack([m.wh.weight for m in mems])
+        bias = torch.stack([m.wh.bias for m in mems])
+        x = obs_seq.reshape(1, T * B, -1).expand(len(mems), -1, -1)
+        xproj = torch.baddbmm(bias[:, None], x, wi.transpose(1, 2))
+        keep = 1.0 - dones_seq.to(wh.dtype)
+        (ca, ha), (cc, hc) = carry
+        c0 = torch.stack([ca, cc]) * keep[0][:, None]
+        h0 = torch.stack([ha, hc]) * keep[0][:, None]
+        y, c = lstm_kernel.lstm_sequence(
+            xproj.view(len(mems), T, B, -1), c0, h0, wh, keep)
+        rows = y.view(len(mems), T * B, -1)
+        means = self._head(self.actor_layers, rows[0]).view(T, B, -1)
+        values = self._head(self.critic_layers, rows[1]).view(T, B, -1)
+        return ((c[0], y[0, -1]), (c[1], y[1, -1])), (means, values)

@@ -1,9 +1,9 @@
 """Device measurement helpers of chip_smoke.py: the card's published
 peaks and its nvidia-smi identity, the contact law's bytes, operations
 and bound, random contact-law inputs, the ABA op's random inputs and
-bytes (shared with tests/test_torch_aba_kernel.py), the FK kernel's
-bytes, and CUDA-graph timing of a call; and the comparison of a learning
-curve with the JAX package's committed runs (`compare_curves`,
+bytes (shared with tests/test_torch_aba_kernel.py), the FK and the LSTM
+kernels' bytes, and CUDA-graph timing of a call; and the comparison of a
+learning curve with the JAX package's committed runs (`compare_curves`,
 `CURVES`), which reads only their metrics.jsonl.
 
 Everything that times or queries the card raises without one; nothing
@@ -186,6 +186,17 @@ def fk_bytes(nb: int, n: int, with_qd: bool) -> int:
     if with_qd:
         floats += n * (nb + 5) + nb * n * 6
     return 4 * floats
+
+
+def lstm_bytes(m: int, b: int, h: int, backward: bool) -> int:
+    """Bytes one step of the LSTM gate kernel (csrc/lstm.cu) must move at
+    m memories x b rows x h units, at a step with a next one: forward 17
+    floats an element (reads 4 input projections, 4 recurrent products and
+    c_{t-1}; writes 4 gates, c_t, h_t and the masked carry pair), backward
+    14 (reads 4 gates, c_t, c_{t-1}, the output's gradient and the next
+    carry's two gradients; writes 4 gate gradients and c_{t-1}'s); and
+    keep, b floats."""
+    return 4 * (m * b * h * (14 if backward else 17) + b)
 
 
 def device_ms(fn, sets, launches):

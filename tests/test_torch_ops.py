@@ -4,7 +4,8 @@ the tensor check, the build rule and its failures with nvcc replaced by
 a fake, the load and the launch with the library and the CUDA stream
 replaced by fakes, and the launch count's process-lifetime total
 (utils/spans.total). The kernels themselves run only on the card
-(tests/test_torch_{contact,aba_kernel,fk_kernel}.py, marked `cuda`)."""
+(tests/test_torch_{contact,aba_kernel,fk_kernel,lstm_kernel}.py, marked
+`cuda`)."""
 
 import contextlib
 import ctypes
@@ -16,7 +17,8 @@ import types
 import pytest
 import torch
 
-from dwbc_tpu_torch.ops import aba_kernel, contact_kernel, fk_kernel, kernel
+from dwbc_tpu_torch.ops import (aba_kernel, contact_kernel, fk_kernel, kernel,
+                                lstm_kernel)
 from dwbc_tpu_torch.utils import spans
 
 KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
@@ -38,12 +40,18 @@ def c_entry_kinds(k):
     return kinds
 
 
-@pytest.mark.parametrize("mod", [contact_kernel, aba_kernel, fk_kernel],
-                         ids=["contact", "aba", "fk"])
-def test_argtypes_agree_with_the_c_entry(mod):
-    k = mod.KERNEL
+@pytest.mark.parametrize("mod, k", [
+    (contact_kernel, contact_kernel.KERNEL), (aba_kernel, aba_kernel.KERNEL),
+    (fk_kernel, fk_kernel.KERNEL), (lstm_kernel, lstm_kernel.FORWARD),
+    (lstm_kernel, lstm_kernel.BACKWARD)],
+    ids=["contact", "aba", "fk", "lstm", "lstm_backward"])
+def test_argtypes_agree_with_the_c_entry(mod, k):
     assert [KINDS[t] for t in k.argtypes] == c_entry_kinds(k)
-    assert mod.build == k.build
+    # the module's build is its first kernel's, and every kernel of the
+    # module is built into that one library with the same flags
+    first = getattr(mod, "KERNEL", None) or mod.FORWARD
+    assert mod.build == first.build
+    assert (k.library, k.flags) == (first.library, first.flags)
     assert os.path.dirname(k.library) == kernel.BUILD
 
 
