@@ -590,7 +590,8 @@ class WidowGo1Env:
         # (widowGo1.py:1178-1182)
         extras = {}
         if cfg.control.torque_supervision:
-            extras["target_arm_torques"] = self._osc_target(state)
+            with spans.span("env.osc"):
+                extras["target_arm_torques"] = self._osc_target(state)
             extras["current_arm_dof_pos"] = state.robot.q[:, 7 + 12:7 + 18]
             extras["current_arm_dof_vel"] = state.robot.qd[:, 6 + 12:6 + 18]
 
@@ -850,7 +851,9 @@ class WidowGo1Env:
     def _osc_target(self, state: EnvState):
         """Operational-space control expert torques for supervision
         (widowGo1.py:1217-1242): u = J^T Lambda (kp dpose - kd v_ee) + g(q),
-        (N, 6), batched over the envs."""
+        (N, 6), batched over the envs. Each call counts once under
+        `osc_target`."""
+        spans.count("osc_target")
         m = self.model
         q, qd = state.robot.q, state.robot.qd
         arm = slice(6 + 12, 6 + 18)

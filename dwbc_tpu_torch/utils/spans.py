@@ -24,8 +24,10 @@ count reaches only the total.
 
 Spans of the training path (the names the benchmark's readers read):
 runner.collect, runner.learn (rl/runner.py, rl/recurrent.py);
-rollout.policy (the policy's calls of a collect step); env.physics and
-env.post (an env step's physics substeps and everything after them);
+rollout.policy (the policy's calls of a collect step); env.osc (the
+OSC expert's target of a torque-supervised widowGo1 step, before its
+physics), env.physics and env.post (an env step's physics substeps and
+everything after them);
 sim.fk, sim.contact, sim.aba, sim.integrate (one physics substep,
 sim/fused.py); ppo.gae, ppo.minibatch, ppo.dagger_minibatch (rl/ppo.py);
 inside the recurrent update's ppo.minibatch ppo.unroll (the re-unroll and
@@ -35,7 +37,8 @@ setup.env, setup.runner (utils/task_registry.make_runner) and
 setup.native (loading or building a native library). Counters:
 host_sync, each point where the host waits for the card; contact_kernel,
 aba_kernel and fk_kernel, each launch of the contact, articulated-body
-and forward-kinematics kernels (ops/kernel.py).
+and forward-kinematics kernels (ops/kernel.py); osc_target, each call of
+widowGo1's OSC expert (envs/widowgo1.py).
 """
 
 from __future__ import annotations

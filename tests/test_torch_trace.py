@@ -265,3 +265,33 @@ def test_the_recurrent_update_has_a_span_per_part_of_each_minibatch(
     assert runner.last_learn_time == ns["runner.learn"] * 1e-9
     # the newest trajectory is kept, as OnPolicyRunner keeps it
     assert runner.last_traj.obs.shape == (STEPS, ENVS, 48)
+
+
+@pytest.fixture(scope="module")
+def adaptive_runner():
+    """widowGo1_adaptive (adaptive arm gains, the OSC expert) at ENVS x
+    STEPS."""
+    _, runner, _ = task_registry.make_runner("widowGo1_adaptive",
+                                             num_envs=ENVS, seed=2,
+                                             device="cpu")
+    runner.rollout.num_steps = STEPS
+    return runner
+
+
+@pytest.mark.parametrize("task", ["widowGo1_adaptive", "widowGo1"])
+def test_the_osc_expert_has_a_span_and_a_count_per_env_step(
+        built, adaptive_runner, task):
+    runner = (adaptive_runner if task == "widowGo1_adaptive"
+              else built[0][task][1])
+    rec, = _learn(runner)
+    calls = {k: v[0] for k, v in rec["spans"].items()}
+    if task == "widowGo1":
+        assert "env.osc" not in calls
+        assert "osc_target" not in rec["counters"]
+        return
+    assert calls["env.osc"] == STEPS
+    assert rec["counters"]["osc_target"] == STEPS
+    # the expert runs before the step's physics, outside its spans
+    ns = {k: v[1] for k, v in rec["spans"].items()}
+    assert ns["env.osc"] + ns["env.physics"] + ns["env.post"] \
+        <= ns["runner.collect"]
